@@ -13,12 +13,10 @@ from ``mdqtplasmasims_tpu.analysis.state_population_profile``.
 
 Usage: python examples/dark_state_sweep.py [outdir]
 
-Typical output (TPU v5e, seed 1; re-measured at the round-4 exact
-output grid): the 3-point grid runs in ~13-48 s wall total (one
-compile; the spread is the remote compile service), dips at
-1.47 / 1.22 / 1.22 gamma/k for predictions 1.43 / 1.08 / 1.08 — the
-dip tracks the two-photon detuning, riding ~0.1 high on the
-thermal-tail slope at this run length.
+Typical output (seed 1): dips at 1.47 / 1.22 / 1.22 gamma/k for
+predictions 1.43 / 1.08 / 1.08 — the dip tracks the two-photon
+detuning, riding ~0.1 high on the thermal-tail slope at this run
+length.  Wall time on the GPU: not measured.
 """
 import glob
 import os

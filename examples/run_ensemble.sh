@@ -1,10 +1,10 @@
 #!/usr/bin/env bash
-# TPU equivalent of the reference's exampleSlurmFile.slurm: instead of a
+# Equivalent of the reference's exampleSlurmFile.slurm: instead of a
 # 10-99-way SLURM job array (one binary, 4 OpenMP threads, 8 h walltime per
-# job), the whole ensemble batches onto TPU chips in one process.
+# job), the whole ensemble batches onto GPUs in one process.
 #
 # Reference workflow:            This framework:
-#   #SBATCH --array=1-16           --jobs 16 (vmapped on-chip)
+#   #SBATCH --array=1-16           --jobs 16 (one device program)
 #   srun runFile $TASK_ID          one python invocation
 #   8 h per job                    ~minutes total
 #   aggregate .dat offline         same job<k>/ tree + analysis.py helpers
@@ -13,7 +13,7 @@ set -euo pipefail
 JOBS="${1:-16}"
 OUT="${2:-dataLaserCool}"
 
-# On a pod slice, add --mesh-ens <n_chips> to spread the jobs over the
+# On a multi-GPU host, add --mesh-ens <n_gpus> to spread the jobs over the
 # mesh's ens axis (--mesh-ions shards each member's ions for large N);
 # the share-nothing families take the same flag on their batched/sweep
 # subcommands.

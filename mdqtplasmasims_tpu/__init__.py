@@ -1,3 +1,3 @@
-"""TPU-native MDQT ultracold-neutral-plasma simulation framework."""
+"""MDQT ultracold-neutral-plasma simulation framework in JAX."""
 
 __version__ = "0.1.0"

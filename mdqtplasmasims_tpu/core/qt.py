@@ -17,17 +17,17 @@ across them (SURVEY.md L4):
    S-vs-D by the fixed branching ratio, collapse via the C-G-weighted
    destination table, reset the ion clock, apply +-recoil along x.
 
-TPU-native design notes:
+Design notes:
 
 * Instead of per-ion [S,S] Hamiltonians (the reference does ~6 Armadillo
   matmuls per RK stage per ion), H*phi is (a) a diagonal term, (b) one
   shared [S,S] x [S,N] matmul, (c) <= 2 row updates for the time-dependent
-  channels.
+  channels.  Every matmul asks for ``Precision.HIGHEST``: a default f32
+  product may run in TF32 on the GPU.
 * The hot path is **state-major**: wavefunctions ride as ``[S, N]`` so the
-  ion axis fills the 128-wide vector lanes.  An ``[N, S]`` layout would pad
-  S=12 -> 128 lanes and waste ~10x VPU throughput.  The public ``step()``
-  keeps the [N, S] convention (transposes at the boundary); schedulers use
-  ``step_sm`` and keep [S, N] across whole segments.
+  ion axis is the contiguous one.  The public ``step()`` keeps the [N, S]
+  convention (transposes at the boundary); schedulers use ``step_sm`` and
+  keep [S, N] across whole segments.
 * Both branches are computed for every ion and merged with ``jnp.where`` —
   no data-dependent control flow under ``jit``.
 """
@@ -165,7 +165,8 @@ class QTEngine:
         frozen across the RK stages)."""
         diag = (p.e0[:, None] + p.e1[:, None] * u[None, :]
                 - 0.5j * p.decay_w[:, None])
-        out = diag * phi + p.coupling @ phi
+        out = diag * phi + jnp.matmul(p.coupling, phi,
+                                      precision=jax.lax.Precision.HIGHEST)
         if self.scheme.tdep_rows:
             if phase is None:
                 phase = self._tdep_phase(u, tq, phi.dtype)
@@ -272,12 +273,13 @@ class QTEngine:
         src = jnp.minimum(_categorical_sm(rolls[1] * tot, src_cum), S - 1)
 
         d_branch = rolls[2] < self.scheme.branch_d_prob     # D-decay?
-        # destination distribution per ion via one-hot matmuls (a [N]-row
-        # gather from the [2,S,S] table is slow on TPU)
+        # destination distribution per ion via one-hot matmuls
         src_oh = (jax.lax.broadcasted_iota(jnp.int32, (S, n), 0)
                   == src[None, :]).astype(rdtype)           # [S,N]
-        cum_s = p.jump_dest_cum[0].T @ src_oh               # [S(dest),N]
-        cum_d = p.jump_dest_cum[1].T @ src_oh
+        hi = jax.lax.Precision.HIGHEST
+        cum_s = jnp.matmul(p.jump_dest_cum[0].T, src_oh,
+                           precision=hi)                    # [S(dest),N]
+        cum_d = jnp.matmul(p.jump_dest_cum[1].T, src_oh, precision=hi)
         dest_cum = jnp.where(d_branch[None, :], cum_d, cum_s)
         dest = jnp.minimum(_categorical_sm(rolls[4], dest_cum), S - 1)
         psi_jumped = (jax.lax.broadcasted_iota(jnp.int32, (S, n), 0)

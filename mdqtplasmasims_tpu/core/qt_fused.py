@@ -1,22 +1,29 @@
-"""Fused Pallas TPU kernel: one full multirate MD step per kernel launch.
+"""Fused tick-block kernel: one MD step's quantum ticks in one launch.
 
 The SpeedUp scheme runs ``ratio`` quantum ticks (leapfrog substep + RK4
 non-Hermitian QT update + jump sampling) between force refreshes.  The
-XLA path executes each tick as ~40 fused kernels with HBM round trips
-between them; this kernel keeps the whole block — positions, velocities,
-wavefunctions, per-ion clocks, and all RK stages — resident in VMEM for
-all ``ratio`` ticks, with complex arithmetic unrolled into real/imag f32
-planes.
+XLA path runs each tick as ~20 small kernels over [S, N] planes (XLA
+cannot fuse across iterations of the tick loop), each carrying
+nanoseconds of work at the flagship N0=3500.  This kernel
+runs the whole tick block per launch: Pallas through Triton, one program
+per block of ``block`` ions, with every per-ion quantity — R, V, F,
+``t_part`` and the S real + S imaginary rows of psi — held in registers
+for all ticks.
 
-Layout per ion tile (T lanes): R/V/F as [3,T] rows, psi as [SP,T] re/im
-planes (S padded to a sublane multiple; pad rows are zero and stay zero),
-batched uniforms as [ratio*5, T].  The level-scheme tables (coupling
-matrix, decay weights, jump tables, force terms) ride as small VMEM
-inputs (vecs [SP,8], mats [4*SP,SP]) — Pallas kernels cannot capture
-non-scalar Python constants.
+The level scheme is baked in as Python scalars: H·psi is unrolled FMAs
+over the real coupling table's nonzeros (the sr12 coupling is sparse),
+the categorical jump draws are running sums and selects, and the decay
+and force weights are constants.  Only the per-lane inputs (state planes,
+the [ticks*5, Np] uniforms, the diagonal energies e0, and the Rabi rows of
+a laser sweep) are read from memory, one [block] row at a time.
 
-Semantics are identical to QTEngine.step_sm + leapfrog_substep given the
-same rolls (verified by tests/test_fused.py to f32 tolerance).
+On an H100 at N0=3500 the kernel takes 32 µs per 25-tick MD step, and the
+whole cooling loop runs at 8.07 µs per tick against 45.5 µs on the XLA
+path (PERF.md).
+
+Semantics are identical to ``QTEngine.step_sm`` + ``leapfrog_substep``
+given the same uniforms (tests/test_fused.py runs the kernel in interpret
+mode against the XLA path).
 """
 
 from __future__ import annotations
@@ -27,19 +34,15 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import triton as pl_triton
 
 from ..levels import LevelScheme
 
-try:
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-    _HAS_PALLAS = True
-except Exception:  # pragma: no cover
-    _HAS_PALLAS = False
-
-
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
+#: Ions per program.  A power of two (Triton's block rule); one ion per
+#: thread at ``num_warps = block // 32``.  128 measured fastest of
+#: 32/64/128/256 at N0=3500 on an H100 (PERF.md).
+DEFAULT_BLOCK = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,7 +57,6 @@ class FusedTickSpec:
     ratio: int
     L: float
     apply_force: bool
-    internal_rng: bool = False   # draw uniforms in-kernel (pltpu PRNG)
     # expanding-frame detuning exp_det(t) = c1*t/sqrt(1+c2*t^2) added to the
     # Doppler shift u, computed in-kernel from the tick counter
     # (laserCoolingPlusExpansionMDQTSpeedUp.cpp:447); zero coefs disable it
@@ -62,12 +64,11 @@ class FusedTickSpec:
     exp_c2: float = 0.0
     # explicit norm division after every tick (SpeedUp.cpp:706-712)
     renormalize: bool = False
-    # take the diagonal energies from a per-lane [SP, Np] plane input
-    # instead of the scheme's [SP] vector — lets folded ensemble members
-    # carry *different laser detunings* (detSP/detDP enter the physics
-    # only through e0, levels.py:151-156), so a whole detuning sweep runs
-    # as ONE kernel launch per MD step.  Same FLOPs: the [SP,1] e0 column
-    # was broadcast against [SP,T] anyway.
+    # the caller supplies the diagonal energies as a per-lane [S, Np]
+    # plane (otherwise the scheme's e0 is broadcast to one) — lets folded
+    # ensemble members carry *different laser detunings* (detSP/detDP
+    # enter the physics only through e0, levels.py:151-156), so a whole
+    # detuning sweep runs as ONE kernel launch per MD step.
     per_lane_e0: bool = False
     # per-lane Rabi frequencies: every coupling is *linear* in its Rabi
     # frequency (levels.py:172-190 — SP couplings ∝ om, DP couplings and
@@ -75,8 +76,7 @@ class FusedTickSpec:
     # by group), so H splits exactly as om*C_sp + om_dp*C_dp + diag.
     # ``scheme_sp``/``scheme_dp`` hold the base patterns (the scheme
     # built at om=1,om_dp=0 and om=0,om_dp=1); the kernel scales them by
-    # a [2, Np] row input.  Costs one extra [SP,SP]x[SP,T] matmul per
-    # H·psi — only when sweeping.
+    # a [2, Np] row input.
     per_lane_om: bool = False
     scheme_sp: LevelScheme = None
     scheme_dp: LevelScheme = None
@@ -85,303 +85,250 @@ class FusedTickSpec:
     def S(self) -> int:
         return self.scheme.n_states
 
-    @property
-    def SP(self) -> int:      # padded state count (f32 sublane multiple)
-        return _round_up(self.S, 8)
+
+def _row_nonzeros(mat) -> list:
+    """Per row r of a real [S,S] table: the (column, value) nonzeros."""
+    m = np.asarray(mat).real
+    return [[(c, float(m[r, c])) for c in range(m.shape[1]) if m[r, c] != 0]
+            for r in range(m.shape[0])]
 
 
-def _make_kernel(spec: FusedTickSpec):
+def _make_kernel(spec: FusedTickSpec, n_ticks: int):
     sch = spec.scheme
     # beat-note (time-dependent coupling) source: with the om split the
     # coefficients come from the om_dp=1 base pattern, scaled per lane
     tsch = spec.scheme_dp if spec.per_lane_om else sch
-    S, SP = spec.S, spec.SP
-    h = spec.h
-    qdt = spec.qdt
-    p2q = spec.plas_to_quant_vel
-    g2e = spec.gamma_to_einstein
-    L = spec.L
-    ratio = spec.ratio
+    S = spec.S
+    # plain Python floats: numpy scalars are not weakly typed and would
+    # promote the f32 kernel arithmetic under jax_enable_x64
+    h, qdt, L = float(spec.h), float(spec.qdt), float(spec.L)
+    p2q, g2e = float(spec.plas_to_quant_vel), float(spec.gamma_to_einstein)
+    c1, c2 = float(spec.exp_c1), float(spec.exp_c2)
+    freq = float(tsch.tdep_freq) if tsch.tdep_rows else 0.0
+    branch_d = float(sch.branch_d_prob)
+    kick_s, kick_d = float(sch.kick_s), float(sch.kick_d)
+    w = [float(x) for x in sch.decay_w]
+    e1 = [float(x) for x in sch.e1]
+    if spec.per_lane_om:
+        groups_c = (_row_nonzeros(spec.scheme_sp.coupling),
+                    _row_nonzeros(spec.scheme_dp.coupling))
+    else:
+        groups_c = (_row_nonzeros(sch.coupling),)
+    src = set(int(s) for s in sch.jump_src)
+    # destination-cumulative tables per (source, branch), nonzero sources
+    cum = np.cumsum(np.asarray(sch.jump_dest, np.float64), -1)  # [S,2,S]
+    cum_src = [s for s in range(S) if np.any(cum[s] != 0)]
+    apply_kick = spec.apply_force and sch.has_force
 
-    def kernel(first_ref, tick0_ref, ticki_ref, seed_ref, vecs_ref, mats_ref,
-               R_ref, V_ref, F_ref, tp_ref, pre_ref, pim_ref, *rest):
+    def kernel(scal_ref, R_ref, V_ref, F_ref, tp_ref, pre_ref, pim_ref,
+               e0_ref, *rest):
         rest = list(rest)
-        e0l_ref = rest.pop(0) if spec.per_lane_e0 else None
         om_ref = rest.pop(0) if spec.per_lane_om else None
-        if spec.internal_rng:
-            (Ro_ref, Vo_ref, tpo_ref, preo_ref, pimo_ref) = rest
-            rolls_ref = None
-            # one independent hardware-PRNG stream per (md step, ion
-            # tile): prng_seed mixes both words (Mosaic caps at 2), so
-            # the stream identity is ~62 bits.  Word 2 is
-            # tile * 2^20 + (tick mod 2^20) from the *int32* tick input
-            # (the f32 tick0 would lose integer exactness past 2^24
-            # ticks): unique within any run shorter than 2^20 MD steps
-            # for up to 2^11 ion tiles, killing the intra-run birthday
-            # collisions a single 31-bit seed has (~5 expected replayed
-            # tiles per 1e5-step run).  Word 1 (a fresh 31-bit draw per
-            # *sampling segment*, scheduler.soa_init — per-step refresh
-            # was measured as 3.5% pure glue) decorrelates runs/jobs and
-            # breaks any mod-2^20 tick aliasing on >2^20-tick runs,
-            # since segments are far shorter than 2^20 ticks.
-            pltpu.prng_seed(
-                seed_ref[0, 0],
-                pl.program_id(0) * jnp.int32(1 << 20)
-                + jax.lax.rem(ticki_ref[0, 0], jnp.int32(1 << 20)))
-        else:
-            (rolls_ref, Ro_ref, Vo_ref, tpo_ref, preo_ref, pimo_ref) = rest
-        T = R_ref.shape[1]
-        # scheme tables ride as inputs (pallas kernels cannot capture
-        # non-scalar constants): vecs [SP,8] cols = w,e0,e1,src_mask
-        # and mats [4*SP,SP] = C | cumS^T | cumD^T | lower-tri ones
-        w_c = vecs_ref[:, 0:1]
-        # diagonal energies: per-lane plane (detuning sweep) or the
-        # scheme's shared column — same broadcast shape either way
-        e0_b = e0l_ref[...] if spec.per_lane_e0 else vecs_ref[:, 1:2]
-        e1_c = vecs_ref[:, 2:3]
-        mask_c = vecs_ref[:, 3:4]
-        C_c = mats_ref[0:SP, :]
-        cumS_cT = mats_ref[SP:2 * SP, :]       # [dest, src] for dot
-        cumD_cT = mats_ref[2 * SP:3 * SP, :]
-        LT_c = mats_ref[3 * SP:4 * SP, :]      # lower-triangular ones
-        if spec.per_lane_om:
-            Cdp_c = mats_ref[4 * SP:5 * SP, :]  # om_dp=1 base pattern
-            om_r = om_ref[0:1, :]
-            omdp_r = om_ref[1:2, :]
-        rows = jax.lax.broadcasted_iota(jnp.int32, (SP, T), 0)
-        first = first_ref[0, 0]
-        tick0 = tick0_ref[0, 0]          # run tick counter at block entry
+        rolls_ref, Ro_ref, Vo_ref, tpo_ref, preo_ref, pimo_ref = rest
+        first = scal_ref[0]
+        tick0 = scal_ref[1]
+        F = [F_ref[k, :] for k in range(3)]
+        zero = jnp.zeros_like(F[0])
+        e0v = [e0_ref[r, :] for r in range(S)]
+        # per-group lane scales: (om, om_dp) rows on a Rabi sweep
+        scales = ((om_ref[0, :], om_ref[1, :]) if spec.per_lane_om
+                  else (None,))
 
-        def hpsi(a, b, u, cphi, sphi):
-            """(Hr + iHi)(a + ib) -> (re, im).  u: [1,T] row."""
-            diag_r = e0_b + e1_c * u
-            if spec.per_lane_om:
-                # H's off-diagonal is linear in each Rabi frequency, so
-                # it splits exactly into two scaled base patterns
-                hr_a = (om_r * jnp.dot(C_c, a,
-                                       preferred_element_type=jnp.float32)
-                        + omdp_r * jnp.dot(
-                            Cdp_c, a, preferred_element_type=jnp.float32)
-                        + diag_r * a)
-                hr_b = (om_r * jnp.dot(C_c, b,
-                                       preferred_element_type=jnp.float32)
-                        + omdp_r * jnp.dot(
-                            Cdp_c, b, preferred_element_type=jnp.float32)
-                        + diag_r * b)
-            else:
-                hr_a = jnp.dot(C_c, a, preferred_element_type=jnp.float32) \
-                    + diag_r * a
-                hr_b = jnp.dot(C_c, b, preferred_element_type=jnp.float32) \
-                    + diag_r * b
-            hi_a = -0.5 * w_c * a
-            hi_b = -0.5 * w_c * b
-            re = hr_a - hi_b
-            im = hr_b + hi_a
-            if tsch.tdep_rows:
-                sc = omdp_r if spec.per_lane_om else 1.0
-                for r, cl, m in zip(tsch.tdep_rows, tsch.tdep_cols,
-                                    tsch.tdep_coefs):
-                    mr = jnp.float32(m.real)
-                    # H[r,cl] = m e^{i phi}; H[cl,r] = m e^{-i phi}
-                    re = re + jnp.where(
-                        rows == r, sc * mr * (cphi * a[cl:cl + 1, :]
-                                              - sphi * b[cl:cl + 1, :]),
-                        0.0)
-                    im = im + jnp.where(
-                        rows == r, sc * mr * (cphi * b[cl:cl + 1, :]
-                                              + sphi * a[cl:cl + 1, :]),
-                        0.0)
-                    re = re + jnp.where(
-                        rows == cl, sc * mr * (cphi * a[r:r + 1, :]
-                                               + sphi * b[r:r + 1, :]),
-                        0.0)
-                    im = im + jnp.where(
-                        rows == cl, sc * mr * (cphi * b[r:r + 1, :]
-                                               - sphi * a[r:r + 1, :]),
-                        0.0)
+        def scaled(x, s):
+            return x if s is None else s * x
+
+        def hpsi(a, b, u, cphi, sphi, e0v):
+            """(Hr + iHi)(a + ib) -> (re, im) lists of S rows."""
+            re, im = [], []
+            for r in range(S):
+                d = e0v[r] + e1[r] * u if e1[r] else e0v[r]
+                hr_a = d * a[r]
+                hr_b = d * b[r]
+                for nz, s in zip(groups_c, scales):
+                    if not nz[r]:
+                        continue
+                    ca = cb = None
+                    for c, v in nz[r]:
+                        ca = v * a[c] if ca is None else ca + v * a[c]
+                        cb = v * b[c] if cb is None else cb + v * b[c]
+                    hr_a = hr_a + scaled(ca, s)
+                    hr_b = hr_b + scaled(cb, s)
+                if w[r]:
+                    # -i w/2 decay on the diagonal
+                    re.append(hr_a + (0.5 * w[r]) * b[r])
+                    im.append(hr_b - (0.5 * w[r]) * a[r])
+                else:
+                    re.append(hr_a)
+                    im.append(hr_b)
+            sc = scales[-1]
+            for r, cl, m in zip(tsch.tdep_rows, tsch.tdep_cols,
+                                tsch.tdep_coefs):
+                m = float(complex(m).real)
+                # H[r,cl] = m e^{i phi}; H[cl,r] = m e^{-i phi}
+                re[r] = re[r] + scaled(m * (cphi * a[cl] - sphi * b[cl]), sc)
+                im[r] = im[r] + scaled(m * (cphi * b[cl] + sphi * a[cl]), sc)
+                re[cl] = re[cl] + scaled(m * (cphi * a[r] + sphi * b[r]), sc)
+                im[cl] = im[cl] + scaled(m * (cphi * b[r] - sphi * a[r]), sc)
             return re, im
 
         def dp_of(a, b):
-            return h * jnp.sum(w_c * (a * a + b * b), axis=0,
-                               keepdims=True)        # [1,T]
+            acc = zero
+            for r in range(S):
+                if w[r]:
+                    acc = acc + w[r] * (a[r] * a[r] + b[r] * b[r])
+            return h * acc
 
-        def g_slope(a, b, u, cphi, sphi):
-            dphi = jnp.clip(dp_of(a, b), 0.0, 0.9)
+        def g_slope(a, b, u, cphi, sphi, e0v):
+            dphi = jnp.minimum(jnp.maximum(dp_of(a, b), 0.0), 0.9)
             pref = jax.lax.rsqrt(1.0 - dphi)
-            hre, him = hpsi(a, b, u, cphi, sphi)
-            # G = pref*(phi - i h Hphi):  re = pref*(a + h*him), im = pref*(b - h*hre)
-            ka = (pref * (a + h * him) - a) / h
-            kb = (pref * (b - h * hre) - b) / h
+            hre, him = hpsi(a, b, u, cphi, sphi, e0v)
+            # G = pref*(phi - i h Hphi): re = pref*(a + h*him),
+            # im = pref*(b - h*hre); slope = (G - phi)/h
+            ka = [(pref * (a[r] + h * him[r]) - a[r]) * (1.0 / h)
+                  for r in range(S)]
+            kb = [(pref * (b[r] - h * hre[r]) - b[r]) * (1.0 / h)
+                  for r in range(S)]
             return ka, kb
 
-        def tick(i, carry):
-            R, V, tp, a, b = carry
-            tick_f = i.astype(jnp.float32)
+        def axpy(x, k, c):
+            return [x[r] + c * k[r] for r in range(S)]
 
-            # ---- leapfrog substep (forces fixed) ----
-            fs = jnp.where(jnp.logical_and(first > 0, i == 0), 1.0, 0.0)
-            half = jnp.float32(0.5 * qdt)
-            R = R + half * V + fs * half * half * F_ref[...]
-            R = jnp.where(R < 0, R + L, R)
-            R = jnp.where(R > L, R - L, R)
-            V = V + jnp.float32(qdt) * F_ref[...]
-            R = R + half * V + fs * half * half * F_ref[...]
-            R = jnp.where(R < 0, R + L, R)
-            R = jnp.where(R > L, R - L, R)
+        def tick(i, carry):
+            R, V, tp, a, b, fsq = carry
+            R, V, a, b = list(R), list(V), list(a), list(b)
+
+            # ---- leapfrog substep (forces fixed); ``fsq`` carries the
+            # 2nd-order first-drift term, nonzero on the run's first tick
+            half = 0.5 * qdt
+            for k in range(3):
+                x = R[k] + half * V[k] + fsq * F[k]
+                x = jnp.where(x < 0, x + L, x)
+                x = jnp.where(x > L, x - L, x)
+                V[k] = V[k] + qdt * F[k]
+                x = x + half * V[k] + fsq * F[k]
+                x = jnp.where(x < 0, x + L, x)
+                R[k] = jnp.where(x > L, x - L, x)
 
             # ---- quantum tick ----
-            tp = tp + jnp.float32(qdt)
-            u = V[0:1, :] * jnp.float32(p2q)          # [1,T]
-            if spec.exp_c1:
-                # expansion-frame detuning at the tick's entry time, same
-                # convention as CoolingScheduler.substeps (t before the
-                # tick increments): t = (tick0 + i) * qdt
-                tpl = (tick0 + tick_f) * jnp.float32(qdt)
-                u = u + (jnp.float32(spec.exp_c1) * tpl
-                         * jax.lax.rsqrt(1.0 + jnp.float32(spec.exp_c2)
-                                         * tpl * tpl))
+            tp = tp + qdt
+            u = V[0] * p2q
+            if c1:
+                # expansion-frame detuning at the tick's entry time, as in
+                # CoolingScheduler.substeps (t before the tick increments)
+                tpl = (tick0 + i.astype(jnp.float32)) * qdt
+                u = u + c1 * tpl * jax.lax.rsqrt(1.0 + c2 * tpl * tpl)
             if tsch.tdep_rows:
-                phi_ang = (jnp.float32(tsch.tdep_freq) * u
-                           * (tp * jnp.float32(g2e)))
-                cphi = jnp.cos(phi_ang)
-                sphi = jnp.sin(phi_ang)
+                ang = freq * u * (tp * g2e)
+                cphi, sphi = jnp.cos(ang), jnp.sin(ang)
             else:
-                cphi = sphi = jnp.zeros((1, T), jnp.float32)
+                cphi = sphi = None
+            r0, r1, r2, r3, r4 = (rolls_ref[i * 5 + k, :] for k in range(5))
 
-            if spec.internal_rng:
-                # prng_random_bits returns signed int32: bitcast before the
-                # shift or the arithmetic shift smears the sign bit
-                bits = pltpu.bitcast(pltpu.prng_random_bits((5, T)),
-                                     jnp.uint32)
-                # uint32->f32 casts are unsupported in Mosaic: go through
-                # int32 after the shift (top bit already cleared)
-                b24 = pltpu.bitcast(bits >> jnp.uint32(8), jnp.int32)
-                u5 = b24.astype(jnp.float32) * jnp.float32(2 ** -24)
-                r0, r1, r2, r3, r4 = (u5[k:k + 1, :] for k in range(5))
-            else:
-                r0 = rolls_ref[pl.ds(i * 5, 1), :]
-                r1 = rolls_ref[pl.ds(i * 5 + 1, 1), :]
-                r2 = rolls_ref[pl.ds(i * 5 + 2, 1), :]
-                r3 = rolls_ref[pl.ds(i * 5 + 3, 1), :]
-                r4 = rolls_ref[pl.ds(i * 5 + 4, 1), :]
+            jumped = r0 < dp_of(a, b)
 
-            dp0 = dp_of(a, b)
-            jumped = r0 < dp0                          # [1,T]
+            k1a, k1b = g_slope(a, b, u, cphi, sphi, e0v)
+            k2a, k2b = g_slope(axpy(a, k1a, 0.5 * h), axpy(b, k1b, 0.5 * h),
+                               u, cphi, sphi, e0v)
+            k3a, k3b = g_slope(axpy(a, k2a, 0.5 * h), axpy(b, k2b, 0.5 * h),
+                               u, cphi, sphi, e0v)
+            k4a, k4b = g_slope(axpy(a, k3a, h), axpy(b, k3b, h),
+                               u, cphi, sphi, e0v)
+            ae = [a[r] + (k1a[r] + 3 * k2a[r] + 3 * k3a[r] + k4a[r])
+                  * (h / 8) for r in range(S)]
+            be = [b[r] + (k1b[r] + 3 * k2b[r] + 3 * k3b[r] + k4b[r])
+                  * (h / 8) for r in range(S)]
 
-            k1a, k1b = g_slope(a, b, u, cphi, sphi)
-            k2a, k2b = g_slope(a + 0.5 * h * k1a, b + 0.5 * h * k1b,
-                               u, cphi, sphi)
-            k3a, k3b = g_slope(a + 0.5 * h * k2a, b + 0.5 * h * k2b,
-                               u, cphi, sphi)
-            k4a, k4b = g_slope(a + h * k3a, b + h * k3b, u, cphi, sphi)
-            ae = a + (k1a + 3 * k2a + 3 * k3a + k4a) * jnp.float32(h / 8)
-            be = b + (k1b + 3 * k2b + 3 * k3b + k4b) * jnp.float32(h / 8)
+            # ---- jump collapse: source by population, then destination
+            # from the (source, branch) cumulative table ----
+            acc = zero
+            src_cum = []
+            for k in range(S):
+                if k in src:
+                    acc = acc + (a[k] * a[k] + b[k] * b[k])
+                src_cum.append(acc)
+            x = r1 * jnp.maximum(acc, 1e-30)
+            n_src = zero.astype(jnp.int32)
+            for c in src_cum:
+                n_src = n_src + (x >= c).astype(jnp.int32)
+            src_i = jnp.minimum(n_src, S - 1)
+            d_branch = r2 < branch_d
+            n_dst = zero.astype(jnp.int32)
+            for k in range(S):
+                cs = cd = zero
+                for s in cum_src:
+                    hit = src_i == s
+                    cs = jnp.where(hit, float(cum[s, 0, k]), cs)
+                    cd = jnp.where(hit, float(cum[s, 1, k]), cd)
+                n_dst = n_dst + (r4 >= jnp.where(d_branch, cd, cs)
+                                 ).astype(jnp.int32)
+            dest = jnp.minimum(n_dst, S - 1)
 
-            # Ehrenfest kick from the initial wavefunction
-            kick_nj = jnp.zeros((1, T), jnp.float32)
-            if spec.per_lane_om:
-                # force terms are linear in their Rabi frequency by group
-                # (SP terms ∝ om, DP terms ∝ om_dp): sum each base
-                # pattern, scale by the lane rows
-                groups = ((spec.scheme_sp, om_r), (spec.scheme_dp, omdp_r))
-            else:
-                groups = ((sch, None),)
-            for gsch, scale in groups:
-                acc = jnp.zeros((1, T), jnp.float32)
-                for fa, fb, fw in zip(gsch.force_a, gsch.force_b,
-                                      gsch.force_w):
-                    if fw == 0.0:     # the om splits zero the other group
-                        continue
-                    # Im(psi_a conj(psi_b)) = b_a a_b - a_a b_b
-                    acc = acc + jnp.float32(fw) * (
-                        b[fa:fa + 1, :] * a[fb:fb + 1, :]
-                        - a[fa:fa + 1, :] * b[fb:fb + 1, :])
-                kick_nj = kick_nj + (acc if scale is None else scale * acc)
-            kick_nj = kick_nj * jnp.float32(h)
+            if apply_kick:
+                # Ehrenfest kick from the initial wavefunction:
+                # Im(psi_a conj(psi_b)) = b_a a_b - a_a b_b
+                if spec.per_lane_om:
+                    fgroups = ((spec.scheme_sp, scales[0]),
+                               (spec.scheme_dp, scales[1]))
+                else:
+                    fgroups = ((sch, None),)
+                kick_nj = zero
+                for gsch, s in fgroups:
+                    kacc = zero
+                    for fa, fb, fw in zip(gsch.force_a, gsch.force_b,
+                                          gsch.force_w):
+                        if fw:      # the om splits zero the other group
+                            kacc = kacc + float(fw) * (b[fa] * a[fb]
+                                                       - a[fa] * b[fb])
+                    kick_nj = kick_nj + scaled(kacc, s)
+                kick_nj = kick_nj * h
+                if sch.apply_recoil:
+                    kick_j = (jnp.where(r3 < 0.5, 1.0, -1.0)
+                              * jnp.where(d_branch, kick_d, kick_s))
+                else:
+                    kick_j = zero
+                V[0] = V[0] + jnp.where(jumped, kick_j, kick_nj)
 
-            # ---- jump collapse ----
-            pop = a * a + b * b
-            src_w = pop * mask_c
-            # cumsum over states as a lower-triangular matmul (Mosaic has
-            # no cumsum primitive)
-            src_cum = jnp.dot(LT_c, src_w,
-                              preferred_element_type=jnp.float32)
-            tot = jnp.maximum(src_cum[SP - 1:SP, :], 1e-30)
-            src = jnp.minimum(
-                jnp.sum((r1 * tot >= src_cum).astype(jnp.int32), axis=0,
-                        keepdims=True), S - 1)        # [1,T]
-            src_oh = (rows == src).astype(jnp.float32)
-            cs_ = jnp.dot(cumS_cT, src_oh, preferred_element_type=jnp.float32)
-            cd_ = jnp.dot(cumD_cT, src_oh, preferred_element_type=jnp.float32)
-            d_branch = r2 < jnp.float32(sch.branch_d_prob)
-            dest_cum = jnp.where(d_branch, cd_, cs_)
-            dest = jnp.minimum(
-                jnp.sum((r4 >= dest_cum).astype(jnp.int32), axis=0,
-                        keepdims=True), S - 1)
-            a_j = (rows == dest).astype(jnp.float32)
-
-            sign = jnp.where(r3 < 0.5, 1.0, -1.0)
-            kick_j = sign * jnp.where(d_branch, jnp.float32(sch.kick_d),
-                                      jnp.float32(sch.kick_s))
-            if not sch.apply_recoil:
-                kick_j = jnp.zeros_like(kick_j)
-
-            a = jnp.where(jumped, a_j, ae)
-            b = jnp.where(jumped, jnp.zeros_like(be), be)
-            tp = jnp.where(jumped, jnp.zeros_like(tp), tp)
+            a = [jnp.where(jumped, jnp.where(dest == r, 1.0, 0.0), ae[r])
+                 for r in range(S)]
+            b = [jnp.where(jumped, 0.0, be[r]) for r in range(S)]
+            tp = jnp.where(jumped, 0.0, tp)
             if spec.renormalize:
-                # guarded so pad columns (norm 0) stay exactly zero
-                nrm = jnp.sqrt(jnp.sum(a * a + b * b, axis=0, keepdims=True))
-                inv = jnp.where(nrm > 0.0, 1.0 / nrm, 0.0)
-                a = a * inv
-                b = b * inv
-            if spec.apply_force and sch.has_force:
-                kick = jnp.where(jumped, kick_j, kick_nj)
-                rows3 = jax.lax.broadcasted_iota(jnp.int32, V.shape, 0)
-                V = V + jnp.where(rows3 == 0, kick, 0.0)
+                nrm = zero
+                for r in range(S):
+                    nrm = nrm + (a[r] * a[r] + b[r] * b[r])
+                # guarded so pad lanes (norm 0) stay exactly zero
+                inv = jnp.where(nrm > 0.0, jax.lax.rsqrt(
+                    jnp.where(nrm > 0.0, nrm, 1.0)), 0.0)
+                a = [x * inv for x in a]
+                b = [x * inv for x in b]
+            return tuple(R), tuple(V), tp, tuple(a), tuple(b), 0.0 * fsq
 
-            return R, V, tp, a, b
-
-        R, V, tp, a, b = jax.lax.fori_loop(
-            0, ratio, tick,
-            (R_ref[...], V_ref[...], tp_ref[...], pre_ref[...], pim_ref[...]))
-        Ro_ref[...] = R
-        Vo_ref[...] = V
-        tpo_ref[...] = tp
-        preo_ref[...] = a
-        pimo_ref[...] = b
+        carry = (tuple(R_ref[k, :] for k in range(3)),
+                 tuple(V_ref[k, :] for k in range(3)), tp_ref[0, :],
+                 tuple(pre_ref[r, :] for r in range(S)),
+                 tuple(pim_ref[r, :] for r in range(S)),
+                 first * (0.25 * qdt * qdt))
+        R, V, tp, a, b, _ = jax.lax.fori_loop(0, n_ticks, tick, carry)
+        for k in range(3):
+            Ro_ref[k, :] = R[k]
+            Vo_ref[k, :] = V[k]
+        tpo_ref[0, :] = tp
+        for r in range(S):
+            preo_ref[r, :] = a[r]
+            pimo_ref[r, :] = b[r]
 
     return kernel
 
 
-@functools.partial(jax.jit, static_argnames=("spec", "tile", "interpret"))
-def fused_md_substeps(spec: FusedTickSpec, first, R, V, F, tp, psi_re,
-                      psi_im, rolls=None, seed=None, tick0=None,
-                      tick0_i=None, e0_lanes=None, om_lanes=None,
-                      tile: int = 512, interpret: bool = False):
-    """One MD step's worth of quantum-substepped ticks as one kernel.
-
-    Shapes: R/V/F [3, Np], tp [1, Np], psi planes [SP, Np], rolls
-    [ratio*5, Np]; Np must be a multiple of ``tile``; ``first`` is a (1,1)
-    f32 flag selecting the reference's 2nd-order first drift; ``tick0`` is
-    the (1,1) f32 run tick counter, required when the spec enables the
-    expanding-frame detuning (exp_c1 != 0); ``tick0_i`` is the same
-    counter as (1,1) int32, used for PRNG stream identity when
-    ``internal_rng`` (int32 keeps exactness where f32 would alias streams
-    past 2^24 ticks).  ``e0_lanes`` [SP, Np] supplies per-lane diagonal
-    energies when ``spec.per_lane_e0`` (detuning-sweep folds — each
-    member block of the lane axis carries its own detunings);
-    ``om_lanes`` [2, Np] supplies per-lane (om, om_dp) Rabi rows when
-    ``spec.per_lane_om``.
-    """
+def _check_real_tables(spec: FusedTickSpec) -> None:
+    """The kernel unrolls complex arithmetic assuming purely real coupling
+    tables (true for all four reference schemes); fail loudly otherwise."""
     schemes = [spec.scheme]
     if spec.per_lane_om:
         if spec.scheme_sp is None or spec.scheme_dp is None:
             raise ValueError("spec.per_lane_om requires scheme_sp/"
                              "scheme_dp base patterns")
         schemes += [spec.scheme_sp, spec.scheme_dp]
-    # the kernel unrolls complex arithmetic assuming purely real coupling
-    # tables (true for all four reference schemes); fail loudly otherwise
     for s_ in schemes:
         if np.abs(np.asarray(s_.coupling).imag).max() != 0.0:
             raise ValueError("fused kernel requires a real coupling "
@@ -391,94 +338,86 @@ def fused_md_substeps(spec: FusedTickSpec, first, R, V, F, tp, psi_re,
             raise ValueError("fused kernel requires real tdep "
                              f"coefficients; scheme {s_.name} has "
                              "complex entries")
-    npad = R.shape[1]
-    grid = (npad // tile,)
-    kern = _make_kernel(spec)
-    S, SP = spec.S, spec.SP
-    if psi_re.shape[0] != SP or psi_im.shape[0] != SP:
-        raise ValueError(f"psi planes must be padded to [{SP}, Np], got "
+
+
+@functools.partial(jax.jit, static_argnames=("spec", "block", "interpret"))
+def fused_md_substeps(spec: FusedTickSpec, first, R, V, F, tp, psi_re,
+                      psi_im, rolls, tick0=None, e0_lanes=None,
+                      om_lanes=None, block: int = DEFAULT_BLOCK,
+                      interpret: bool = False):
+    """One MD step's worth of quantum-substepped ticks as one kernel.
+
+    Shapes: R/V/F [3, Np], tp [1, Np], psi planes [S, Np], rolls
+    [ratio*5, Np] (row ``5*i + k`` is tick i's k-th uniform); Np must be
+    a multiple of ``block``.  ``first`` is a one-element f32 flag
+    selecting the reference's 2nd-order first drift; ``tick0`` is the
+    one-element f32 run tick counter, required when the spec enables the
+    expanding-frame detuning (exp_c1 != 0).  ``e0_lanes`` [S, Np]
+    supplies per-lane diagonal energies when ``spec.per_lane_e0``
+    (detuning-sweep folds — each member block of the lane axis carries
+    its own detunings); ``om_lanes`` [2, Np] supplies per-lane (om,
+    om_dp) Rabi rows when ``spec.per_lane_om``.  ``interpret`` runs the
+    kernel in the Pallas interpreter (CPU tests and dry runs).
+
+    Returns ``(R, V, tp, psi_re, psi_im)`` in the input layout.
+    """
+    _check_real_tables(spec)
+    S, npad = spec.S, R.shape[1]
+    if block & (block - 1):
+        raise ValueError(f"block {block} must be a power of two")
+    if psi_re.shape != (S, npad) or psi_im.shape != (S, npad):
+        raise ValueError(f"psi planes must be [{S}, {npad}], got "
                          f"{psi_re.shape}/{psi_im.shape}")
-    if npad % tile or R.shape != (3, npad) or tp.shape != (1, npad):
+    if npad % block or R.shape != (3, npad) or tp.shape != (1, npad):
         raise ValueError(f"bad shapes: R {R.shape}, tp {tp.shape}, "
-                         f"Np={npad} must be a multiple of tile={tile}")
-
-    vecs = np.zeros((SP, 8), np.float32)
-    vecs[:S, 0] = spec.scheme.decay_w
-    vecs[:S, 1] = spec.scheme.e0
-    vecs[:S, 2] = spec.scheme.e1
-    for s in spec.scheme.jump_src:
-        vecs[s, 3] = 1.0
-    n_mat = 5 if spec.per_lane_om else 4
-    mats = np.zeros((n_mat * SP, SP), np.float32)
-    # block 0: the coupling pattern — the om=1 SP base when Rabi rows are
-    # per-lane (scaled in-kernel), else the scheme's full matrix
-    mats[:S, :S] = (spec.scheme_sp if spec.per_lane_om
-                    else spec.scheme).coupling.real
-    if spec.per_lane_om:
-        mats[4 * SP:4 * SP + S, :S] = spec.scheme_dp.coupling.real
-    # destination-cumulative tables, padded DEST rows saturated to 1 so a
-    # uniform roll (< 1) never counts them in the categorical comparison
-    mats[SP:2 * SP, :] = 1.0
-    mats[2 * SP:3 * SP, :] = 1.0
-    mats[SP:SP + S, :S] = np.cumsum(spec.scheme.jump_dest[:, 0, :], -1).T
-    mats[2 * SP:2 * SP + S, :S] = np.cumsum(spec.scheme.jump_dest[:, 1, :],
-                                            -1).T
-    mats[3 * SP:4 * SP, :] = np.tril(np.ones((SP, SP), np.float32))
-
-    row_spec = lambda rows: pl.BlockSpec((rows, tile), lambda i: (0, i),
-                                         memory_space=pltpu.VMEM)
-    smem11 = pl.BlockSpec((1, 1), lambda i: (0, 0), memory_space=pltpu.SMEM)
-    in_specs = [
-        smem11, smem11, smem11, smem11,
-        pl.BlockSpec((SP, 8), lambda i: (0, 0), memory_space=pltpu.VMEM),
-        pl.BlockSpec((n_mat * SP, SP), lambda i: (0, 0),
-                     memory_space=pltpu.VMEM),
-        row_spec(3), row_spec(3), row_spec(3), row_spec(1),
-        row_spec(SP), row_spec(SP),
-    ]
-    if spec.per_lane_e0:
-        if e0_lanes is None:
-            raise ValueError("spec.per_lane_e0 requires e0_lanes [SP, Np]")
-        if e0_lanes.shape != (SP, npad):
-            raise ValueError(f"e0_lanes must be [{SP}, {npad}], got "
-                             f"{e0_lanes.shape}")
-        in_specs.append(row_spec(SP))
-    if spec.per_lane_om:
-        if om_lanes is None:
-            raise ValueError("spec.per_lane_om requires om_lanes [2, Np]")
-        if om_lanes.shape != (2, npad):
-            raise ValueError(f"om_lanes must be [2, {npad}], got "
-                             f"{om_lanes.shape}")
-        in_specs.append(row_spec(2))
-    if not spec.internal_rng:
-        in_specs.append(row_spec(spec.ratio * 5))
-    if seed is None:
-        seed = jnp.zeros((1, 1), jnp.int32)
+                         f"Np={npad} must be a multiple of block={block}")
+    if rolls.shape != (spec.ratio * 5, npad):
+        raise ValueError(f"rolls must be [{spec.ratio * 5}, {npad}], got "
+                         f"{rolls.shape}")
     if tick0 is None:
         if spec.exp_c1:
             raise ValueError("tick0 is required when exp_c1 != 0 (the "
                              "expanding-frame detuning is a function of "
                              "absolute run time)")
-        tick0 = jnp.zeros((1, 1), jnp.float32)
-    if tick0_i is None:
-        tick0_i = tick0.astype(jnp.int32)
-    out = pl.pallas_call(
-        kern,
-        grid=grid,
+        tick0 = 0.0
+    scal = jnp.stack([jnp.reshape(first, ()), jnp.reshape(tick0, ())]
+                     ).astype(jnp.float32)
+
+    def rows(n):
+        return pl.BlockSpec((n, block), lambda i: (0, i))
+
+    if spec.per_lane_e0:
+        if e0_lanes is None or e0_lanes.shape != (S, npad):
+            raise ValueError(f"spec.per_lane_e0 requires e0_lanes [{S}, "
+                             f"{npad}], got "
+                             f"{None if e0_lanes is None else e0_lanes.shape}")
+    else:
+        # one code path for both: the diagonal always arrives as a plane
+        e0_lanes = jnp.broadcast_to(
+            jnp.asarray(np.asarray(spec.scheme.e0, np.float32))[:, None],
+            (S, npad))
+    in_specs = [pl.BlockSpec((2,), lambda i: (0,)), rows(3), rows(3),
+                rows(3), rows(1), rows(S), rows(S), rows(S)]
+    extra = []
+    if spec.per_lane_om:
+        if om_lanes is None or om_lanes.shape != (2, npad):
+            raise ValueError(f"spec.per_lane_om requires om_lanes [2, "
+                             f"{npad}], got "
+                             f"{None if om_lanes is None else om_lanes.shape}")
+        in_specs.append(rows(2))
+        extra.append(om_lanes)
+    in_specs.append(rows(spec.ratio * 5))
+    f32 = lambda *shape: jax.ShapeDtypeStruct(shape, jnp.float32)
+    return pl.pallas_call(
+        _make_kernel(spec, spec.ratio),
+        grid=(npad // block,),
         in_specs=in_specs,
-        out_specs=(row_spec(3), row_spec(3), row_spec(1), row_spec(SP),
-                   row_spec(SP)),
-        out_shape=(
-            jax.ShapeDtypeStruct((3, npad), jnp.float32),
-            jax.ShapeDtypeStruct((3, npad), jnp.float32),
-            jax.ShapeDtypeStruct((1, npad), jnp.float32),
-            jax.ShapeDtypeStruct((SP, npad), jnp.float32),
-            jax.ShapeDtypeStruct((SP, npad), jnp.float32),
-        ),
+        out_specs=(rows(3), rows(3), rows(1), rows(S), rows(S)),
+        out_shape=(f32(3, npad), f32(3, npad), f32(1, npad), f32(S, npad),
+                   f32(S, npad)),
+        backend="triton",
+        compiler_params=pl_triton.CompilerParams(
+            num_warps=max(1, block // 32), num_stages=1),
         interpret=interpret,
-    )(*((first, tick0, tick0_i, seed, jnp.asarray(vecs), jnp.asarray(mats),
-         R, V, F, tp, psi_re, psi_im)
-        + ((e0_lanes,) if spec.per_lane_e0 else ())
-        + ((om_lanes,) if spec.per_lane_om else ())
-        + (() if spec.internal_rng else (rolls,))))
-    return out
+        name="fused_tick_block",
+    )(scal, R, V, F, tp, psi_re, psi_im, e0_lanes, *extra, rolls)

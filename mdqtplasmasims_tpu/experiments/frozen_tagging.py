@@ -1,6 +1,6 @@
 """Frozen-gas-start quantum-trajectory velocity tagging.
 
-TPU-native re-expression of randomFrozenStartTag{408Linear,408Quad,
+JAX re-expression of randomFrozenStartTag{408Linear,408Quad,
 422Linear}.cpp (call stack SURVEY.md 3.4): frozen (T=0) random positions
 undergo disorder-induced heating under pure Yukawa MD; inside the pump
 window [tstart, tstart+tpump] an optical-pumping QT engine spin-polarizes a
@@ -47,7 +47,6 @@ from ..levels import tag408, tag422
 from ..ops.correlations import streaming_long_kin, streaming_vaf
 from ..ops.kde import centered_bins, centered_bins_np, gaussian_kde
 from ..ops.yukawa import best_forces_fn, yukawa_potential
-from ..util import safe_device_get
 from ..state import SimState, make_state
 from ..units import (PlasmaUnits, pump_window_einstein, qt_units_408,
                      qt_units_422)
@@ -84,7 +83,6 @@ class FrozenTagConfig:
     job: int = 1
     exact_n: bool = True
     dtype: str = "float32"
-    use_pallas: Optional[bool] = None
     save_directory: Optional[str] = None
 
     def __post_init__(self):
@@ -150,7 +148,7 @@ def build_scheduler(cfg: FrozenTagConfig, qt_params=None,
     """``qt_params``: optional traced QTParams override (one sweep
     member's detuning/om — core/qt.sweep_qt_params); None uses cfg's
     static scheme.  ``mask``: traced real-ion marker for padded members
-    (Poissonian-N fold) — the pair kernels gate both sides of every
+    (Poissonian-N fold) — the pair forces gate both sides of every
     pair, so padded R=V=0 lanes stay exactly inert."""
     pu = PlasmaUnits(cfg.density, cfg.ge)
     L = PlasmaUnits.box_length(cfg.n0)
@@ -162,8 +160,7 @@ def build_scheduler(cfg: FrozenTagConfig, qt_params=None,
                       apply_force=False)
     return FrozenTagScheduler(
         engine=engine,
-        forces_fn=best_forces_fn(cfg.n0, L, pu.debye_length, mask=mask,
-                                 use_pallas=cfg.use_pallas),
+        forces_fn=best_forces_fn(cfg.n0, L, pu.debye_length, mask=mask),
         L=L, qdt=cfg.qdt, ratio=cfg.ratio,
         t_pump_start=cfg.tstart, t_pump_end=cfg.tend,
         qt_params=qt_params)
@@ -180,8 +177,7 @@ def initial_state(cfg: FrozenTagConfig, seed: Optional[int] = None) -> SimState:
     # drift (randomFrozenStartTag422Linear.cpp:324-333); seed F accordingly
     pu = PlasmaUnits(cfg.density, cfg.ge)
     L = PlasmaUnits.box_length(cfg.n0)
-    forces_fn = best_forces_fn(cfg.n0, L, pu.debye_length,
-                               use_pallas=cfg.use_pallas)
+    forces_fn = best_forces_fn(cfg.n0, L, pu.debye_length)
     F, _ = forces_fn(st.R)
     return st._replace(F=F)
 
@@ -408,13 +404,13 @@ def run(cfg: FrozenTagConfig, seed: Optional[int] = None,
                               seg_lengths, tail=tail)
     jax.block_until_ready(state)
 
-    outs = safe_device_get(outs)
-    out_tag = safe_device_get(out_tag)
-    final = safe_device_get(state)
-    spin_up_np = np.asarray(safe_device_get(spin_up))
+    outs = jax.device_get(outs)
+    out_tag = jax.device_get(out_tag)
+    final = jax.device_get(state)
+    spin_up_np = np.asarray(jax.device_get(spin_up))
     results = dict(outs=outs, out_tag=out_tag, spin_up=spin_up_np,
                    epot0=float(epot0), final=final, n_md_a=n_md_a,
-                   vholder=np.asarray(safe_device_get(vholder)))
+                   vholder=np.asarray(jax.device_get(vholder)))
 
     if cfg.save_directory is not None:
         d = frozen_tag_dir(cfg.save_directory,
@@ -522,12 +518,12 @@ def _resume_continue(cfg: FrozenTagConfig):
     jax.block_until_ready(st)
 
     if outs is not None:
-        outs = safe_device_get(outs)
-    final = safe_device_get(st)
-    spin_np = np.asarray(safe_device_get(spin_up))
+        outs = jax.device_get(outs)
+    final = jax.device_get(st)
+    spin_np = np.asarray(jax.device_get(spin_up))
     results = dict(outs=outs, spin_up=spin_np, epot0=epot0, final=final,
                    n_md_a=n_md_a, labels=labels,
-                   vholder=np.asarray(safe_device_get(vholder)))
+                   vholder=np.asarray(jax.device_get(vholder)))
 
     w = DatWriter(d)
     if outs is not None:
@@ -559,9 +555,9 @@ def _resume_continue(cfg: FrozenTagConfig):
 def _run_batched(cfg: FrozenTagConfig, member_cfgs, keys, qt_params=None,
                  mesh=None, mask=None):
     """vmap all three phases over the member axis (one compiled program;
-    the Pallas force kernel batches through vmap's grid-dim lifting, the
-    pump-window QT scan is member-parallel XLA), fetch once, write each
-    member's .dat tree under its own param-encoded directory.
+    pair forces and the pump-window QT scan are member-parallel XLA),
+    fetch once, write each member's .dat tree under its own
+    param-encoded directory.
     ``qt_params``: optional [E]-batched QTParams pytree (sweep folds).
     ``mesh`` shards the member axis over the mesh's ``ens`` devices
     (parallel/ensemble.member_sharded — zero collectives).
@@ -569,13 +565,12 @@ def _run_batched(cfg: FrozenTagConfig, member_cfgs, keys, qt_params=None,
     inside the fixed-shape fold (reference init draws a fresh N per
     array job, randomFrozenStartTag422Linear.cpp:245-303): members are
     padded to the largest draw, padded lanes start R=V=psi=0 and stay
-    exactly inert (both-side pair-kernel masking; dp=0 never jumps), and
+    exactly inert (both-side pair-force masking; dp=0 never jumps), and
     every 1/N normalization uses the member's real count.  Lane-major
     roll draws (scheduler.md_step) keep each ion's RNG stream independent
     of the padded lane count, so a member reproduces its exact-shape run
-    bit-for-bit whenever the force path pads both shapes to the same
-    tile (the Pallas kernels; the CPU chunked kernel reduces over the
-    lane count and differs at f32 rounding)."""
+    up to f32 rounding (the chunked force sum reduces over the lane
+    count)."""
     cfg_run = dataclasses.replace(cfg, job=1, save_directory=None)
     pu = PlasmaUnits(cfg.density, cfg.ge)
     L = PlasmaUnits.box_length(cfg.n0)
@@ -603,8 +598,7 @@ def _run_batched(cfg: FrozenTagConfig, member_cfgs, keys, qt_params=None,
             psi = random_s_superposition(kp, n_arr, cfg.n_states,
                                          cdtype) * mc
         st = make_state(R, V, psi, k_run, dtype=cfg.np_dtype)
-        forces_fn = best_forces_fn(n_arr, L, pu.debye_length, mask=mk,
-                                   use_pallas=cfg.use_pallas)
+        forces_fn = best_forces_fn(n_arr, L, pu.debye_length, mask=mk)
         F, _ = forces_fn(st.R)
         return st._replace(F=F)
 
@@ -638,12 +632,12 @@ def _run_batched(cfg: FrozenTagConfig, member_cfgs, keys, qt_params=None,
     states, spin_up, epot0, out_tag, outs, vholder = jax.jit(fn)(*args)
     jax.block_until_ready(states)
 
-    outs_np = safe_device_get(outs)
-    out_tag_np = safe_device_get(out_tag)
-    final_np = safe_device_get(states)
-    spin_np = np.asarray(safe_device_get(spin_up))
-    epot0_np = np.asarray(safe_device_get(epot0))
-    vhold_np = np.asarray(safe_device_get(vholder))
+    outs_np = jax.device_get(outs)
+    out_tag_np = jax.device_get(out_tag)
+    final_np = jax.device_get(states)
+    spin_np = np.asarray(jax.device_get(spin_up))
+    epot0_np = np.asarray(jax.device_get(epot0))
+    vhold_np = np.asarray(jax.device_get(vholder))
     n_js = (None if mask is None
             else np.asarray(mask).sum(axis=1).astype(int))
 
@@ -676,7 +670,7 @@ def _run_batched(cfg: FrozenTagConfig, member_cfgs, keys, qt_params=None,
 
 def run_ensemble(cfg: FrozenTagConfig, n_jobs: int, seed: int = 0,
                  mesh=None, resume: bool = False):
-    """Batched job array — the TPU-native replacement for the
+    """Batched job array — the batched replacement for the
     reference's SLURM array over randomFrozenStartTag* jobs
     (README.md:63: pooled statistics need 10+ jobs).  Per-job .dat trees
     land in ``job<k>/`` exactly as the array jobs' would.  Returns the

@@ -2,7 +2,7 @@
 tagged-moment + autocorrelation recording -> temperature-anisotropy
 relaxation (instantaneous rescale and slow anisotropic-force versions).
 
-TPU-native re-expression of MonteCarloFollowedByMDAndTempAnisotropy.cpp
+JAX re-expression of MonteCarloFollowedByMDAndTempAnisotropy.cpp
 (call stack SURVEY.md 3.2).  Each stage is one jitted device program; the
 velocity history for the autocorrelation suite stays on device and the
 O(T^2 N) reference post-pass becomes batched FFTs.
@@ -29,7 +29,6 @@ from ..io.dirs import mc_transport_dir
 from ..ops.correlations import autocorr_suite, power_autocorr
 from ..ops.structure import pair_correlation
 
-from ..util import safe_device_get
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,9 +84,9 @@ class MCTransportConfig:
 
 
 def _forces(cfg: MCTransportConfig, ldeb=None):
-    """R -> F: half-pair Pallas kernel on TPU, XLA elsewhere.  ``ldeb``
+    """R -> F: XLA pair forces (ops/yukawa.best_forces_fn).  ``ldeb``
     optionally overrides cfg's screening length with a traced scalar
-    (per-member kappa sweeps — ops/yukawa data-carried 1/ldeb)."""
+    (per-member kappa sweeps)."""
     from ..ops.yukawa import best_forces_fn
     fn = best_forces_fn(cfg.n, cfg.L, cfg.ldeb if ldeb is None else ldeb)
     return lambda R: fn(R)[0]
@@ -234,7 +233,7 @@ class PipelinePublisher:
     def save(self, stage: int, chunk: int, **arrays) -> None:
         payload = dict(self.meta, stage=np.int64(stage),
                        chunk=np.int64(chunk))
-        payload.update(safe_device_get(
+        payload.update(jax.device_get(
             {k: v for k, v in arrays.items() if v is not None}))
         self.seq += 1
         self._save(self.directory, self.seq, self.family, payload)
@@ -265,7 +264,7 @@ def check_pipeline_meta(z: dict, directory: str, **fields) -> None:
 def _host_cat(chunks) -> np.ndarray:
     """Concatenate accumulated per-chunk outputs (device and/or restored
     host arrays) on the host, chunk-major."""
-    return np.concatenate([safe_device_get(c) for c in chunks], axis=0)
+    return np.concatenate([jax.device_get(c) for c in chunks], axis=0)
 
 
 def run(cfg: MCTransportConfig, seed: Optional[int] = None, *,
@@ -451,12 +450,12 @@ def run(cfg: MCTransportConfig, seed: Optional[int] = None, *,
     results = dict(
         gr_mc=_host_cat(acc["gr_mc"]),
         gr_record=_host_cat(acc["gr_record"]),
-        mc_accepted=safe_device_get(n_acc),
+        mc_accepted=jax.device_get(n_acc),
         moments=_host_cat(acc["moments"]),
         temps=_host_cat(acc["temps"]),
-        **{k: safe_device_get(v) for k, v in autoc.items()},
-        **{k: safe_device_get(v) for k, v in stage_rec.items()},
-        R=safe_device_get(R), V=safe_device_get(V))
+        **{k: jax.device_get(v) for k, v in autoc.items()},
+        **{k: jax.device_get(v) for k, v in stage_rec.items()},
+        R=jax.device_get(R), V=jax.device_get(V))
 
     if cfg_j.save_directory is not None:
         _write_outputs(cfg_j, results)
@@ -470,8 +469,7 @@ def _pipeline(cfg: MCTransportConfig, key, gamma=None, ldeb=None) -> dict:
     -> both anisotropy drives.  ``gamma``/``ldeb`` may be traced scalars
     overriding cfg's coupling and screening — that is how a (Gamma,
     kappa) phase-diagram sweep folds into ONE vmapped program (run_sweep;
-    the force kernel reads the member's 1/ldeb from its position operand,
-    ops/yukawa._half_pair_tile)."""
+    the pair forces take the member's traced ldeb)."""
     g = cfg.gamma if gamma is None else gamma
     n_chunks = max(1, cfg.mc_steps // cfg.gr_every_mc)
 
@@ -538,7 +536,7 @@ def _run_batched(cfg: MCTransportConfig, member_cfgs, keys,
         fn = member_sharded(fn, mesh)
     batched = jax.jit(fn)(*args)
     jax.block_until_ready(batched["R"])
-    batched_np = {k: safe_device_get(v) for k, v in batched.items()}
+    batched_np = {k: jax.device_get(v) for k, v in batched.items()}
 
     results = []
     for j, mcfg in enumerate(member_cfgs):
@@ -574,10 +572,10 @@ def run_sweep(cfg: MCTransportConfig, points, jobs_per_point: int = 1,
     (MonteCarloFollowedByMDAndTempAnisotropy.cpp:64-65) and rebuilding
     the binary per point.  Here both enter the traced pipeline as
     per-member scalars: Gamma scales initialization, MC acceptance,
-    thermostat kicks and the equilibrium-moment subtractions; kappa rides
-    the force kernel's position operand as a data-carried 1/ldeb
-    (ops/yukawa._half_pair_tile), so one compiled program serves the
-    whole grid — every point costs one more vmapped member.
+    thermostat kicks and the equilibrium-moment subtractions; kappa
+    enters the pair forces as a traced screening length, so one compiled
+    program serves the whole grid — every point costs one more vmapped
+    member.
 
     ``points``: sequence of dicts with keys among ``gamma``/``kappa``
     (unset fields keep cfg's value).  ``jobs_per_point`` replicates each

@@ -1,6 +1,6 @@
 """MC-equilibrated quantum-trajectory velocity tagging.
 
-TPU-native re-expression of MonteCarloFollowedByQTTagging{408Linear,
+JAX re-expression of MonteCarloFollowedByQTTagging{408Linear,
 408Quad,422Linear}.cpp (call stack SURVEY.md 3.3): cubic lattice + MB
 velocities + random S-superposition wavefunctions, Metropolis MC anneal,
 collisional velocity-Verlet MD, then an optical-pumping phase (``ratio``
@@ -36,7 +36,6 @@ from ..ops.correlations import autocorr_suite
 from ..ops.kde import centered_bins, centered_bins_np, gaussian_kde
 from ..ops.structure import pair_correlation
 
-from ..util import safe_device_get
 from ..state import make_state
 from ..units import (QTUnits, GAMMA422_FACTOR, K422_FACTOR,
                      pump_window_einstein)
@@ -142,8 +141,7 @@ class MCTagConfig:
 
 
 def _forces(cfg: MCTagConfig):
-    """R -> (F, _): half-pair Pallas kernel on TPU, XLA elsewhere.  No
-    caller needs the potential, so the force-only hot path applies."""
+    """R -> (F, pot): XLA pair forces (ops/yukawa.best_forces_fn)."""
     from ..ops.yukawa import best_forces_fn
     return best_forces_fn(cfg.n, cfg.L, 1.0 / cfg.kappa)
 
@@ -464,14 +462,14 @@ def run(cfg: MCTagConfig, seed: Optional[int] = None, *,
         stage = 4
 
     results = dict(
-        mc_accepted=safe_device_get(n_acc),
-        tags=safe_device_get(tags),
+        mc_accepted=jax.device_get(n_acc),
+        tags=jax.device_get(tags),
         grs=_host_cat(acc["grs"]),
         moments=_host_cat(acc["moments"]),
         dists=_host_cat(acc["dists"]),
         temps=_host_cat(acc["temps"]),
-        **{k: safe_device_get(v) for k, v in autoc.items()},
-        R=safe_device_get(R), V=safe_device_get(V))
+        **{k: jax.device_get(v) for k, v in autoc.items()},
+        R=jax.device_get(R), V=jax.device_get(V))
 
     if cfg_j.save_directory is not None:
         _write_outputs(cfg_j, results)
@@ -523,7 +521,7 @@ def _run_batched(cfg: MCTagConfig, member_cfgs, keys, qt_params=None,
         fn = member_sharded(fn, mesh)
     batched = jax.jit(fn)(*args)
     jax.block_until_ready(batched["R"])
-    batched_np = {k: safe_device_get(v) for k, v in batched.items()}
+    batched_np = {k: jax.device_get(v) for k, v in batched.items()}
 
     results = []
     for j, mcfg in enumerate(member_cfgs):

@@ -12,6 +12,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+# R.k phases reach ~100 rad at N=3500: a TF32 product (the GPU's default
+# for f32 matmuls) would be off by ~0.1 rad, so every product asks for f32
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 def pair_correlation(R: jax.Array, L: float, *, dr: float = 0.05,
                      n_bins: int = 400, chunk: int = 512) -> jax.Array:
@@ -74,7 +77,7 @@ def static_structure_factor(R: jax.Array, kvecs: jax.Array) -> jax.Array:
     locating the correlation-driven first peak at k*a ~ 4.4 in the
     strongly coupled regime.  S(k=0) = N by this definition (the
     forward term); callers drop the zero vector."""
-    phase = R @ kvecs.T                                  # [N, K]
+    phase = jnp.matmul(R, kvecs.T, precision=_HIGHEST)   # [N, K]
     e = jnp.exp(1j * phase.astype(
         jnp.complex64 if R.dtype == jnp.float32 else jnp.complex128))
     rho = jnp.sum(e, axis=0)                             # [K]
@@ -84,7 +87,8 @@ def static_structure_factor(R: jax.Array, kvecs: jax.Array) -> jax.Array:
 def current_fourier(R: jax.Array, V: jax.Array, kvecs: jax.Array) -> jax.Array:
     """J[a, k] = sum_j V[a,j] exp(i k.R_j): one [K,N]x[N,3] complex matmul
     (the reference's O(N*12^3) triple loop, SpeedUp.cpp:1060-1065)."""
-    phase = R @ kvecs.T                                  # [N, K]
+    phase = jnp.matmul(R, kvecs.T, precision=_HIGHEST)   # [N, K]
     e = jnp.exp(1j * phase.astype(
         jnp.complex64 if R.dtype == jnp.float32 else jnp.complex128))
-    return (V.T.astype(e.dtype) @ e)                     # [3, K]
+    return jnp.matmul(V.T.astype(e.dtype), e,
+                      precision=_HIGHEST)                # [3, K]

@@ -3,8 +3,8 @@
 Replaces the reference's share-nothing SLURM job array
 (exampleSlurmFile.slurm) with a single SPMD program: trajectories are
 batched on the ``ens`` mesh axis (vmap within a device, shard_map across
-devices) and the ion axis may additionally be sharded for the O(N^2) force
-kernel, with one ``all_gather`` of positions over ICI per force refresh.
+devices) and the ion axis may additionally be sharded for the O(N^2) pair
+forces, with one ``all_gather`` of positions per force refresh.
 
 RNG: every (job, ion-shard) pair gets an independent threefry key via
 nested ``jax.random.split`` (``shard_keys``: base -> per-job -> per-shard)
@@ -47,11 +47,11 @@ def sharded_forces_fn(L: float, ldeb: float, chunk: int = 512):
 def ring_forces_fn(L: float, ldeb: float, axis: str = ION_AXIS,
                    chunk: int = 512):
     """Ring-permute force evaluation for very large N: instead of
-    all-gathering the global positions (memory O(N) per chip), circulate
+    all-gathering the global positions (memory O(N) per device), circulate
     position blocks around the ICI ring with ``ppermute`` and accumulate
     partial row forces — the blockwise/ring-attention idea applied to the
     N x N pair interaction (SURVEY.md section 5, long-context analog).
-    Peak per-chip memory is O(N/k); bandwidth rides the ring."""
+    Peak per-device memory is O(N/k)."""
 
     def fn(R_local):
         k = jax.lax.axis_size(axis)
@@ -81,7 +81,7 @@ def make_sharded_md_step(scheduler_factory: Callable[[Callable], "CoolingSchedul
     advances one single-system state; it is vmapped over the local ensemble
     block inside shard_map.  ``forces`` picks the cross-shard force path:
     ``"gather"`` (one all_gather of positions per refresh) or ``"ring"``
-    (ppermute circulation, O(N/k) peak memory per chip — for huge N).
+    (ppermute circulation, O(N/k) peak memory per device — for huge N).
     """
     if forces not in ("gather", "ring"):
         raise ValueError(f"forces must be 'gather' or 'ring', got "
@@ -104,93 +104,46 @@ def make_sharded_md_step(scheduler_factory: Callable[[Callable], "CoolingSchedul
     return jax.jit(step)
 
 
-def ring_n3l_fused_forces(sched: "CoolingScheduler", ldeb: float,
-                          e_loc: int, npad: int, mrows: jax.Array,
-                          axis: str = ION_AXIS):
-    """Cross-shard Newton's-third-law force schedule for the ion-sharded
-    fused path: each unordered tile pair is evaluated ONCE and the
-    reaction rows ride the ring back to their owner shard — where the
-    gather path (yukawa_forces_soa_cols_batched against an all_gather of
-    the global positions) pays both ordered halves of every cross-shard
-    pair (~2x the pair math at large shard counts).
-
-    Schedule (the classic half-ring force decomposition): shard m's own
-    block pairs run the triangle-enumerated half-pair kernel locally; a
-    (positions, mask, reaction-accumulator) buffer then circulates the
-    ring via ``ppermute``.  At hop s, shard m holds the block of shard
-    (m - s) mod I and computes the cross tile once with
-    ``yukawa_forces_cross_n3l_soa_batched`` — for hops s <= (I-1)//2
-    always, at the antipodal hop of an even ring (s = I/2) only on the
-    lower-index shard of each pair (SPMD computes the tile on both and
-    masks one — one redundant tile out of I(I+1)/2).  Skipped later hops
-    still permute, carrying each accumulator the full I hops home, where
-    its reaction rows join the local forces.
-
-    Pair-math per shard: (I+1)/2 block tiles (one of them half) vs the
-    gather path's I full tiles — the crossover analysis and the measured
-    virtual-mesh A/B live in docs/ROOFLINE.md.  Returns ``soa_forces``
-    mapping ``Rp [3, E_loc*npad] -> F [3, E_loc*npad]`` (row-masked, as
-    the fused loop requires)."""
-    from ..ops.yukawa import (yukawa_forces_cross_n3l_soa_batched,
-                              yukawa_forces_n3l_soa_batched)
+def gather_soa_forces(L: float, ldeb: float, e_loc: int, npad: int,
+                      mrows: jax.Array, axis: str = ION_AXIS):
+    """Ion-sharded force schedule for the fused loop, inside shard_map:
+    all-gather each member's positions (and masks) over ``axis`` and
+    compute this shard's rows against the whole member.  ``mrows``
+    ``[1, npad]`` or ``[E_loc, npad]`` marks the shard's real ions.
+    Returns ``soa_forces`` mapping ``Rp [3, E_loc*npad] -> F [3,
+    E_loc*npad]``, zero on masked rows so padded lanes stay inert."""
+    from ..ops.yukawa import yukawa_forces_soa_cols_batched
+    cm = jnp.broadcast_to(mrows, (e_loc, npad))
 
     def soa_forces(Rp):
-        k = jax.lax.axis_size(axis)
-        me = jax.lax.axis_index(axis)
-        perm = [(i, (i + 1) % k) for i in range(k)]
-        F = yukawa_forces_n3l_soa_batched(Rp, mrows, e_loc, sched.L,
-                                          ldeb, interpret=sched.interpret)
-        cm = (jnp.broadcast_to(mrows, (e_loc, npad))
-              if mrows.shape[0] == 1 else mrows)
-        row_mask = cm.reshape(1, e_loc * npad)
-        if k == 1:
-            return F * row_mask
-        buf_R = jnp.swapaxes(Rp.reshape(3, e_loc, npad), 0, 2)
-        buf_R = jnp.swapaxes(buf_R, 0, 1)                # [E, npad, 3]
-        buf_m = cm
-        buf_G = jnp.zeros_like(buf_R)
-        for s in range(1, k):
-            buf_R, buf_m, buf_G = jax.lax.ppermute(
-                (buf_R, buf_m, buf_G), axis, perm)
-            if s > k // 2:
-                continue                 # carry the accumulator home
-            Fc, G = yukawa_forces_cross_n3l_soa_batched(
-                Rp, mrows, buf_R, buf_m, e_loc, sched.L, ldeb,
-                interpret=sched.interpret)
-            if k % 2 == 0 and s == k // 2:
-                owner = (me - s) % k     # antipodal: compute once/pair
-                w = (me < owner).astype(Fc.dtype)
-                Fc, G = Fc * w, G * w
-            F = F + Fc
-            buf_G = buf_G + G
-        # one more hop completes the ring: each accumulator returns to
-        # the shard that owns its block
-        _, _, buf_G = jax.lax.ppermute((buf_R, buf_m, buf_G), axis, perm)
-        F = F + jnp.swapaxes(jnp.swapaxes(buf_G, 0, 1), 0, 2).reshape(
-            3, e_loc * npad)
-        return F * row_mask
+        col_mask = jax.lax.all_gather(cm, axis, axis=1, tiled=True)
+        R3 = jnp.swapaxes(Rp.reshape(3, e_loc, npad), 0, 1)
+        cols = jax.lax.all_gather(jnp.swapaxes(R3, 1, 2), axis, axis=1,
+                                  tiled=True)            # [E, I*npad, 3]
+        return yukawa_forces_soa_cols_batched(Rp, cols, col_mask, cm,
+                                              e_loc, L, ldeb)
     return soa_forces
 
 
 def fused_local_stepper(sched: "CoolingScheduler", ldeb: float,
-                        n_ion_shards: int, ion_forces: str = "gather"):
+                        n_ion_shards: int):
     """Local (per-device) fused production stepper for shard_map.
 
     Returns ``local_run(states, n_steps)`` advancing a local ensemble
-    block [E_loc, N_loc, ...] by ``n_steps`` multirate MD steps entirely
-    on the production kernels: members fold into the fused Pallas
-    tick-block kernel's ion axis (core/qt_fused.py) and forces run the
-    Pallas half-pair N3L kernel when each member's ions are device-local
-    (``n_ion_shards == 1``, the production ensemble layout), or the
-    full-tile rows x cols kernel against an ``all_gather`` of the
-    member's global positions when the ion axis is sharded (large-N
-    layout; the reaction half of each pair lives on another shard).
-    Pallas interpret mode (``sched.interpret``) makes the same program
-    run on the CPU mesh for tests and the driver dry run.
+    block [E_loc, N_loc, ...] by ``n_steps`` multirate MD steps on the
+    production program: members fold into the fused tick-block kernel's
+    ion axis (core/qt_fused.py) and pair forces run on the XLA path —
+    member-local when each member's ions are device-local
+    (``n_ion_shards == 1``, the production ensemble layout), or this
+    shard's rows against an ``all_gather`` of the member's global
+    positions when the ion axis is sharded (large-N layout; the reaction
+    half of each pair lives on another shard).  Pallas interpret mode
+    (``sched.interpret``) makes the same program run on a CPU mesh for
+    tests and the dry run.
 
-    RNG: per-member rolls (or in-kernel PRNG streams) come from each
-    member's own key, so trajectories are invariant to how the ensemble
-    axis is laid out across devices.
+    RNG: per-member rolls come from each member's own key, so
+    trajectories are invariant to how the ensemble axis is laid out
+    across devices.
 
     ``local_run(states, n_steps, mask=None, sweep_e0=None)``: the
     optional local ``mask [E_loc, N_loc]`` marks each member's real ions
@@ -205,12 +158,7 @@ def fused_local_stepper(sched: "CoolingScheduler", ldeb: float,
     (laserCoolingPlusExpansionMDQTSpeedUp.cpp:1365-1368) — and returns
     ``(states_mid, states_end)`` so the sharded sampler sees the exact
     state the reference's output() sees."""
-    from ..ops.yukawa import (yukawa_forces_n3l_soa,
-                              yukawa_forces_n3l_soa_batched,
-                              yukawa_forces_soa_cols_batched)
-    if ion_forces not in ("gather", "ring_n3l"):
-        raise ValueError(f"ion_forces must be 'gather' or 'ring_n3l', "
-                         f"got {ion_forces!r}")
+    from ..ops.yukawa import yukawa_forces_soa_batched
 
     def local_run(states: SimState, n_steps: int, mask=None,
                   sweep_e0=None, sweep_om=None, split_last: bool = False):
@@ -223,38 +171,11 @@ def fused_local_stepper(sched: "CoolingScheduler", ldeb: float,
             mrows = jnp.zeros((E_loc, npad), jnp.float32).at[
                 :, :n_loc].set(mask.astype(jnp.float32))
         if n_ion_shards == 1:
-            if E_loc == 1 and mask is None:
-                # one member per device: the unbatched half-pair kernel
-                # skips the reaction buffer's ensemble dim (measured
-                # equal-rate to the single-chip path: 10.9 us/tick at
-                # N0=3500 — tools/bench_sharded.py)
-                soa_forces = lambda Rp: yukawa_forces_n3l_soa(
-                    Rp, mrows, sched.L, ldeb,
-                    interpret=sched.interpret)
-            else:
-                soa_forces = lambda Rp: yukawa_forces_n3l_soa_batched(
-                    Rp, mrows, E_loc, sched.L, ldeb,
-                    interpret=sched.interpret)
-        elif ion_forces == "ring_n3l":
-            soa_forces = ring_n3l_fused_forces(sched, ldeb, E_loc, npad,
-                                               mrows)
+            soa_forces = lambda Rp: yukawa_forces_soa_batched(
+                Rp, mrows, E_loc, sched.L, ldeb)
         else:
-            cm = (jnp.broadcast_to(mrows, (E_loc, npad))
-                  if mrows.shape[0] == 1 else mrows)
-            col_mask = jax.lax.all_gather(cm, ION_AXIS, axis=1,
-                                          tiled=True)   # [E, I*npad]
-            row_mask = cm.reshape(E_loc * npad)
-
-            def soa_forces(Rp):
-                R3 = jnp.swapaxes(Rp.reshape(3, E_loc, npad), 0, 1)
-                cols = jax.lax.all_gather(jnp.swapaxes(R3, 1, 2),
-                                          ION_AXIS, axis=1, tiled=True)
-                F = yukawa_forces_soa_cols_batched(
-                    Rp, cols, col_mask, E_loc, sched.L, ldeb,
-                    interpret=sched.interpret)
-                # the full-tile kernel has no row mask: zero padded/masked
-                # row lanes so they stay inert as they feed back
-                return F * row_mask[None, :]
+            soa_forces = gather_soa_forces(sched.L, ldeb, E_loc, npad,
+                                           mrows)
 
         e0p, omp = fold_sweep_lanes(sched.fused_spec, npad,
                                     sweep_e0=sweep_e0, sweep_om=sweep_om)
@@ -289,22 +210,18 @@ def fused_local_stepper(sched: "CoolingScheduler", ldeb: float,
 
 
 def make_sharded_fused_step(sched: "CoolingScheduler", ldeb: float,
-                            mesh: Mesh, n_steps: int = 1, with_mask=False,
-                            ion_forces: str = "gather"):
+                            mesh: Mesh, n_steps: int = 1, with_mask=False):
     """Jitted sharded [E, N, ...] SimState -> SimState over ``n_steps``
     MD steps on the fused production path (see fused_local_stepper).
     ``sched`` must carry a ``fused_spec``.  With ``with_mask`` the step
-    takes ``(states, mask [E, N])`` for Poissonian-N members.
-    ``ion_forces``: cross-shard force schedule when the ion axis is
-    sharded — ``"gather"`` (all_gather + full-tile) or ``"ring_n3l"``
-    (each pair once, reactions ppermuted home)."""
+    takes ``(states, mask [E, N])`` for Poissonian-N members."""
     if sched.fused_spec is None:
         raise ValueError("make_sharded_fused_step needs a scheduler with "
-                         "a fused_spec (build with use_pallas=True or "
-                         "fused_interpret=True)")
+                         "a fused_spec: the GPU route of "
+                         "routing.kernel_route, or a config with "
+                         "fused_interpret=True")
     spec = state_pspec()
-    local = fused_local_stepper(sched, ldeb, mesh.shape[ION_AXIS],
-                                ion_forces=ion_forces)
+    local = fused_local_stepper(sched, ldeb, mesh.shape[ION_AXIS])
     # check_vma=False: pallas_call does not yet annotate its outputs with
     # varying-mesh-axes metadata, so the vma checker rejects any Pallas
     # kernel inside shard_map
@@ -330,12 +247,12 @@ def shard_keys(base_key: jax.Array, n_ens: int, n_ion_shards: int) -> jax.Array:
 
 
 def member_sharded(fn, mesh):
-    """Multi-chip form of a batched job array for the share-nothing
+    """Multi-device form of a batched job array for the share-nothing
     families (transport, tagging, 3-state toy): wrap an [E]-batched
     member function — every input and output pytree leaf carries the
     member axis leading — so members shard over the mesh's ``ens`` axis.
     Pure data parallelism, zero collectives (SURVEY.md §2 parallelism
-    axis 2: the reference's SLURM array, spread over chips).
+    axis 2: the reference's SLURM array, spread over devices).
 
     These families keep whole members on one device (their production N
     fits comfortably), so a mesh with an ion axis would only replicate

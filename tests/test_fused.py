@@ -1,4 +1,8 @@
-"""Fused Pallas MD-step kernel vs the XLA path (interpret mode on CPU)."""
+"""Fused tick-block kernel (Pallas through Triton) vs the XLA path.
+
+The kernel runs in the Pallas interpreter here; the CUDA-lowering tests
+check that it lowers to a Triton launch for the GPU without a GPU.
+"""
 
 import dataclasses
 
@@ -34,7 +38,7 @@ def xla_reference(engine, R, V, F, tp, psi, rolls, qdt, L, ratio, first,
 @pytest.mark.parametrize("excited_start", [False, True])
 def test_fused_matches_xla(scheme_name, excited_start):
     n = 96
-    tile = 128
+    block = 64
     npad = 128
     ratio = 20 if excited_start else 5
     L = PlasmaUnits.box_length(n)
@@ -71,7 +75,6 @@ def test_fused_matches_xla(scheme_name, excited_start):
                                           qdt, L, ratio, first=False)
 
     # pack padded fused inputs
-    SP = spec.SP
     def pad_rows(x, rows):
         out = jnp.zeros((rows, npad), jnp.float32)
         return out.at[:x.shape[0], :n].set(x)
@@ -79,13 +82,13 @@ def test_fused_matches_xla(scheme_name, excited_start):
     Vp = pad_rows(V.T, 3)
     Fp = pad_rows(F.T, 3)
     tpp = pad_rows(tp[None, :], 1)
-    prep = pad_rows(psi.T.real, SP)
-    pimp = pad_rows(psi.T.imag, SP)
+    prep = pad_rows(psi.T.real, S)
+    pimp = pad_rows(psi.T.imag, S)
     rollsp = pad_rows(rolls.reshape(ratio * 5, n), ratio * 5)
     first = jnp.zeros((1, 1), jnp.float32)
 
     Ro, Vo, tpo, preo, pimo = fused_md_substeps(
-        spec, first, Rp, Vp, Fp, tpp, prep, pimp, rollsp, tile=tile,
+        spec, first, Rp, Vp, Fp, tpp, prep, pimp, rollsp, block=block,
         interpret=True)
 
     atol = 2e-5
@@ -95,12 +98,11 @@ def test_fused_matches_xla(scheme_name, excited_start):
                                atol=atol, rtol=1e-4)
     np.testing.assert_allclose(np.asarray(tpo[0, :n]), np.asarray(tp_x),
                                atol=atol)
-    np.testing.assert_allclose(np.asarray(preo[:S, :n]),
+    np.testing.assert_allclose(np.asarray(preo[:, :n]),
                                np.asarray(psi_x.real), atol=5e-5)
-    np.testing.assert_allclose(np.asarray(pimo[:S, :n]),
+    np.testing.assert_allclose(np.asarray(pimo[:, :n]),
                                np.asarray(psi_x.imag), atol=5e-5)
-    # pad rows/cols stay zero
-    assert float(jnp.abs(preo[S:, :]).max()) == 0.0
+    # pad lanes stay zero
     assert float(jnp.abs(preo[:, n:]).max()) == 0.0
 
 
@@ -110,7 +112,7 @@ def test_fused_expansion_and_renormalize_match_xla(renorm):
     detuning (computed in-kernel from the tick counter) and explicit
     renormalization must reproduce the XLA per-tick path (VERDICT item 1;
     laserCoolingPlusExpansionMDQTSpeedUp.cpp:447,706-712)."""
-    n, tile, npad, ratio, tick_start = 96, 128, 128, 12, 3700
+    n, block, npad, ratio, tick_start = 96, 64, 128, 12, 3700
     L = PlasmaUnits.box_length(n)
     scheme = with_recoil(sr12_cooling(), 9.1e-4, 3.6e-4)
     S = scheme.n_states
@@ -142,8 +144,6 @@ def test_fused_expansion_and_renormalize_match_xla(renorm):
         engine, R, V, F, tp, psi, rolls, qdt, L, ratio, first=False,
         tick0=tick_start, exp_det_fn=exp_det_fn)
 
-    SP = spec.SP
-
     def pad_rows(x, rows):
         out = jnp.zeros((rows, npad), jnp.float32)
         return out.at[:x.shape[0], :n].set(x)
@@ -151,9 +151,9 @@ def test_fused_expansion_and_renormalize_match_xla(renorm):
     Ro, Vo, tpo, preo, pimo = fused_md_substeps(
         spec, jnp.zeros((1, 1), jnp.float32), pad_rows(R.T, 3),
         pad_rows(V.T, 3), pad_rows(F.T, 3), pad_rows(tp[None, :], 1),
-        pad_rows(psi.T.real, SP), pad_rows(psi.T.imag, SP),
+        pad_rows(psi.T.real, S), pad_rows(psi.T.imag, S),
         pad_rows(rolls.reshape(ratio * 5, n), ratio * 5),
-        tick0=jnp.full((1, 1), tick_start, jnp.float32), tile=tile,
+        tick0=jnp.full((1, 1), tick_start, jnp.float32), block=block,
         interpret=True)
 
     np.testing.assert_allclose(np.asarray(Ro[:, :n]), np.asarray(R_x),
@@ -162,16 +162,15 @@ def test_fused_expansion_and_renormalize_match_xla(renorm):
                                atol=2e-5, rtol=1e-4)
     np.testing.assert_allclose(np.asarray(tpo[0, :n]), np.asarray(tp_x),
                                atol=2e-5)
-    np.testing.assert_allclose(np.asarray(preo[:S, :n]),
+    np.testing.assert_allclose(np.asarray(preo[:, :n]),
                                np.asarray(psi_x.real), atol=5e-5)
-    np.testing.assert_allclose(np.asarray(pimo[:S, :n]),
+    np.testing.assert_allclose(np.asarray(pimo[:, :n]),
                                np.asarray(psi_x.imag), atol=5e-5)
-    # pad rows/cols stay exactly zero (renormalize must not 0/0 them)
-    assert float(jnp.abs(preo[S:, :]).max()) == 0.0
+    # pad lanes stay exactly zero (renormalize must not 0/0 them)
     assert float(jnp.abs(preo[:, n:]).max()) == 0.0
     assert float(jnp.abs(pimo[:, n:]).max()) == 0.0
     if renorm:
-        norm = preo[:S, :n] ** 2 + pimo[:S, :n] ** 2
+        norm = preo[:, :n] ** 2 + pimo[:, :n] ** 2
         np.testing.assert_allclose(np.asarray(jnp.sum(norm, 0)), 1.0,
                                    atol=1e-5)
 
@@ -184,11 +183,11 @@ def test_fused_requires_tick0_with_expansion():
                          exp_c2=0.1)
     z3 = jnp.zeros((3, 128), jnp.float32)
     z1 = jnp.zeros((1, 128), jnp.float32)
-    zS = jnp.zeros((spec.SP, 128), jnp.float32)
+    zS = jnp.zeros((spec.S, 128), jnp.float32)
     rolls = jnp.zeros((10, 128), jnp.float32)
     with pytest.raises(ValueError, match="tick0"):
         fused_md_substeps(spec, jnp.zeros((1, 1), jnp.float32), z3, z3, z3,
-                          z1, zS, zS, rolls, tile=128, interpret=True)
+                          z1, zS, zS, rolls, interpret=True)
 
 
 def test_fused_rejects_complex_coupling():
@@ -202,11 +201,11 @@ def test_fused_rejects_complex_coupling():
                          ratio=2, L=10.0, apply_force=True)
     z3 = jnp.zeros((3, 128), jnp.float32)
     z1 = jnp.zeros((1, 128), jnp.float32)
-    zS = jnp.zeros((spec.SP, 128), jnp.float32)
+    zS = jnp.zeros((spec.S, 128), jnp.float32)
     rolls = jnp.zeros((10, 128), jnp.float32)
     with pytest.raises(ValueError, match="real coupling"):
         fused_md_substeps(spec, jnp.zeros((1, 1), jnp.float32), z3, z3, z3,
-                          z1, zS, zS, rolls, tile=128, interpret=True)
+                          z1, zS, zS, rolls, interpret=True)
 
 
 def test_fused_ensemble_fold_matches_per_job():
@@ -216,7 +215,7 @@ def test_fused_ensemble_fold_matches_per_job():
     from mdqtplasmasims_tpu.core.scheduler import CoolingScheduler
     from mdqtplasmasims_tpu.state import SimState
 
-    n, tile, npad, ratio, E = 96, 128, 128, 5, 3
+    n, block, npad, ratio, E = 96, 64, 128, 5, 3
     L = PlasmaUnits.box_length(n)
     scheme = with_recoil(sr12_cooling(), 9.1e-4, 3.6e-4)
     S = scheme.n_states
@@ -225,9 +224,9 @@ def test_fused_ensemble_fold_matches_per_job():
                       gamma_to_einstein=g2e, apply_force=True)
     spec = FusedTickSpec(scheme=scheme, h=h, qdt=qdt, plas_to_quant_vel=p2q,
                          gamma_to_einstein=g2e, ratio=ratio, L=L,
-                         apply_force=True, internal_rng=False)
+                         apply_force=True)
     sched = CoolingScheduler(engine=engine, forces_fn=None, L=L, qdt=qdt,
-                             ratio=ratio, fused_spec=spec, tile=tile,
+                             ratio=ratio, fused_spec=spec, block=block,
                              interpret=True)
 
     key = jax.random.PRNGKey(3)
@@ -249,8 +248,6 @@ def test_fused_ensemble_fold_matches_per_job():
     rolls = jax.random.uniform(
         jax.vmap(jax.random.split)(keys)[0, 1],
         (ratio * 5, E * npad), jnp.float32)
-    SP = spec.SP
-
     def pad_rows(x, rows):
         o = jnp.zeros((rows, npad), jnp.float32)
         return o.at[:x.shape[0], :n].set(x)
@@ -260,8 +257,8 @@ def test_fused_ensemble_fold_matches_per_job():
         Ro, Vo, tpo, preo, pimo = fused_md_substeps(
             spec, first, pad_rows(R[e].T, 3), pad_rows(V[e].T, 3),
             pad_rows(F[e].T, 3), pad_rows(tp[e][None, :], 1),
-            pad_rows(psi[e].T.real, SP), pad_rows(psi[e].T.imag, SP),
-            rolls[:, e * npad:(e + 1) * npad], tile=tile, interpret=True)
+            pad_rows(psi[e].T.real, S), pad_rows(psi[e].T.imag, S),
+            rolls[:, e * npad:(e + 1) * npad], block=block, interpret=True)
         np.testing.assert_array_equal(np.asarray(out.R[e]),
                                       np.asarray(Ro[:, :n].T))
         np.testing.assert_array_equal(np.asarray(out.V[e]),
@@ -281,11 +278,10 @@ def test_soa_ensemble_segment_matches_per_step():
     job-batched force kernel, same RNG draws — so final state batches
     must match bit-for-bit."""
     from mdqtplasmasims_tpu.core.scheduler import CoolingScheduler
-    from mdqtplasmasims_tpu.ops.yukawa import (
-        yukawa_forces_n3l_pallas_batched, yukawa_forces_n3l_soa_batched)
+    from mdqtplasmasims_tpu.ops.yukawa import yukawa_forces_soa_batched
     from mdqtplasmasims_tpu.state import SimState
 
-    n, tile, npad, ratio, E, steps = 96, 128, 128, 4, 3, 3
+    n, block, npad, ratio, E, steps = 96, 64, 128, 4, 3, 3
     L = PlasmaUnits.box_length(n)
     ldeb = PlasmaUnits(2.0, 0.1).debye_length
     scheme = with_recoil(sr12_cooling(), 9.1e-4, 3.6e-4)
@@ -295,9 +291,9 @@ def test_soa_ensemble_segment_matches_per_step():
                       gamma_to_einstein=g2e, apply_force=True)
     spec = FusedTickSpec(scheme=scheme, h=h, qdt=qdt, plas_to_quant_vel=p2q,
                          gamma_to_einstein=g2e, ratio=ratio, L=L,
-                         apply_force=True, internal_rng=False)
+                         apply_force=True)
     sched = CoolingScheduler(engine=engine, forces_fn=None, L=L, qdt=qdt,
-                             ratio=ratio, fused_spec=spec, tile=tile,
+                             ratio=ratio, fused_spec=spec, block=block,
                              interpret=True)
 
     key = jax.random.PRNGKey(5)
@@ -312,17 +308,25 @@ def test_soa_ensemble_segment_matches_per_step():
                       tick=jnp.zeros((E,), jnp.int32),
                       t=jnp.zeros((E,), jnp.float32))
 
+    mask_row = jnp.zeros((1, npad), jnp.float32).at[0, :n].set(1.0)
+    soa_forces = lambda Rp: yukawa_forces_soa_batched(
+        Rp, mask_row, E, L, ldeb)
+
+    def batched_forces(R):
+        # the same padded force program the SoA loop runs, on [E, n, 3]
+        Rp = jnp.zeros((E, 3, npad), jnp.float32).at[:, :, :n].set(
+            jnp.swapaxes(R, 1, 2))
+        F = soa_forces(jnp.swapaxes(Rp, 0, 1).reshape(3, E * npad))
+        F = jnp.swapaxes(F.reshape(3, E, npad), 0, 1)[:, :, :n]
+        return jnp.swapaxes(F, 1, 2)
+
     # reference: per-step fused_substeps_ensemble with a fresh batched
     # force evaluation each step (as the pre-SoA ensemble loop did)
     s_ref = states
     for _ in range(steps):
-        F = yukawa_forces_n3l_pallas_batched(s_ref.R, L, ldeb, tile=tile,
-                                             interpret=True)
-        s_ref = sched.fused_substeps_ensemble(s_ref, F)
+        s_ref = sched.fused_substeps_ensemble(s_ref,
+                                              batched_forces(s_ref.R))
 
-    mask_row = jnp.zeros((1, npad), jnp.float32).at[0, :n].set(1.0)
-    soa_forces = lambda Rp: yukawa_forces_n3l_soa_batched(
-        Rp, mask_row, E, L, ldeb, tile=tile, interpret=True)
     carry = sched.soa_ens_init(states, states.F)
     for _ in range(steps):
         carry = sched.soa_ens_md_step(carry, soa_forces)
@@ -344,11 +348,10 @@ def test_soa_segment_loop_matches_md_steps():
     computation as repeated fused md_step calls — same force kernel, same
     RNG draws — so final states must match bit-for-bit."""
     from mdqtplasmasims_tpu.core.scheduler import CoolingScheduler
-    from mdqtplasmasims_tpu.ops.yukawa import (
-        yukawa_forces_n3l_pallas, yukawa_forces_n3l_soa)
+    from mdqtplasmasims_tpu.ops.yukawa import yukawa_forces_soa
     from mdqtplasmasims_tpu.state import make_state
 
-    n, tile, ratio, steps = 96, 128, 4, 3
+    n, block, ratio, steps = 96, 64, 4, 3
     L = PlasmaUnits.box_length(n)
     ldeb = PlasmaUnits(2.0, 0.1).debye_length
     scheme = with_recoil(sr12_cooling(), 9.1e-4, 3.6e-4)
@@ -357,12 +360,17 @@ def test_soa_segment_loop_matches_md_steps():
                       gamma_to_einstein=g2e, apply_force=True)
     spec = FusedTickSpec(scheme=scheme, h=h, qdt=qdt, plas_to_quant_vel=p2q,
                          gamma_to_einstein=g2e, ratio=ratio, L=L,
-                         apply_force=True, internal_rng=False)
-    forces_fn = lambda R: (yukawa_forces_n3l_pallas(
-        R, L, ldeb, tile=tile, interpret=True), None)
+                         apply_force=True)
+    npad = 128
+    mask_row = jnp.zeros((1, npad), jnp.float32).at[0, :n].set(1.0)
+    soa_forces = lambda Rp: yukawa_forces_soa(Rp, mask_row, L, ldeb)
+    # md_step's [n, 3] forces through the same padded program
+    forces_fn = lambda R: (soa_forces(
+        jnp.zeros((3, npad), jnp.float32).at[:, :n].set(R.T))[:, :n].T,
+        None)
     sched = CoolingScheduler(engine=engine, forces_fn=forces_fn, L=L,
                              qdt=qdt, ratio=ratio, fused_spec=spec,
-                             tile=tile, interpret=True)
+                             block=block, interpret=True)
 
     key = jax.random.PRNGKey(11)
     kr, kv, kp, kk = jax.random.split(key, 4)
@@ -375,9 +383,6 @@ def test_soa_segment_loop_matches_md_steps():
     for _ in range(steps):
         s_ref = sched.md_step(s_ref)
 
-    mask_row = jnp.zeros((1, 128), jnp.float32).at[0, :n].set(1.0)
-    soa_forces = lambda Rp: yukawa_forces_n3l_soa(
-        Rp, mask_row, L, ldeb, tile=tile, interpret=True)
     carry = sched.soa_init(state0, state0.F)
     for _ in range(steps):
         carry = sched.soa_md_step(carry, soa_forces)
@@ -390,76 +395,6 @@ def test_soa_segment_loop_matches_md_steps():
     np.testing.assert_array_equal(np.asarray(s_ref.psi),
                                   np.asarray(s_soa.psi))
     assert int(s_ref.tick) == int(s_soa.tick) == steps * ratio
-
-
-class TestInternalRNGSeeding:
-    """RNG plumbing of the in-kernel hardware-PRNG path (production TPU
-    mode).  Plain CPU interpret mode has no `prng_seed` lowering and the
-    TPU-semantics interpreter (`pltpu.InterpretParams`) stubs the draws
-    to zeros, so only the *scheduler-side* seeding contract is testable
-    here: word 1 is drawn once per sampling segment in soa_init and the
-    key is never consumed per step.  Stream identity proper (identical
-    (seed, tick) -> identical output; either changing -> new stream) is
-    verified on hardware by tools/verify_seed_streams.py."""
-
-    def _setup(self, ratio=6, n=96):
-        tile = npad = 128
-        L = PlasmaUnits.box_length(n)
-        scheme = with_recoil(sr12_cooling(), 9.1e-4, 3.6e-4)
-        h, qdt, p2q, g2e = 0.00985, 8e-5, 1.327, 123.1
-        spec = FusedTickSpec(scheme=scheme, h=h, qdt=qdt,
-                             plas_to_quant_vel=p2q, gamma_to_einstein=g2e,
-                             ratio=ratio, L=L, apply_force=True,
-                             internal_rng=True)
-        key = jax.random.PRNGKey(5)
-        kr, kv, kp, kq = jax.random.split(key, 4)
-        R = jax.random.uniform(kr, (n, 3), jnp.float32, 0, L)
-        V = jax.random.normal(kv, (n, 3), jnp.float32) * 0.3
-        F = jax.random.normal(kq, (n, 3), jnp.float32) * 0.5
-        # populated P manifold so jumps fire (exercises the PRNG draws)
-        S = scheme.n_states
-        psi = jnp.zeros((n, S), jnp.complex64)
-        psi = psi.at[:, 2].set(0.7).at[:, 4].set(0.5j).at[:, 0].set(0.51)
-
-        def pad_rows(x, rows):
-            out = jnp.zeros((rows, npad), jnp.float32)
-            return out.at[:x.shape[0], :n].set(x)
-
-        args = (pad_rows(R.T, 3), pad_rows(V.T, 3), pad_rows(F.T, 3),
-                pad_rows(jnp.ones((1, n), jnp.float32), 1),
-                pad_rows(psi.T.real, spec.SP), pad_rows(psi.T.imag, spec.SP))
-        return spec, tile, args
-
-    def test_segment_key_advances_once(self):
-        from jax.experimental.pallas import tpu as pltpu
-        from mdqtplasmasims_tpu.core.scheduler import CoolingScheduler
-        spec, tile, args = self._setup()
-        engine = QTEngine(spec.scheme, h=spec.h, dt_plasma=spec.qdt,
-                          plas_to_quant_vel=spec.plas_to_quant_vel,
-                          gamma_to_einstein=spec.gamma_to_einstein,
-                          apply_force=True)
-        sched = CoolingScheduler(engine=engine, forces_fn=None, L=spec.L,
-                                 qdt=spec.qdt, ratio=spec.ratio,
-                                 fused_spec=spec, tile=tile,
-                                 interpret=pltpu.InterpretParams())
-        from mdqtplasmasims_tpu.state import make_state
-        n = 96
-        R = jnp.asarray(args[0][:, :n].T)
-        V = jnp.asarray(args[1][:, :n].T)
-        psi = (args[4][:spec.S, :n] + 1j * args[5][:spec.S, :n]).T
-        state = make_state(R, V, psi.astype(jnp.complex64),
-                           jax.random.PRNGKey(9))
-        carry = sched.soa_init(state)
-        key_after_init = np.asarray(carry[6])
-        assert not np.array_equal(key_after_init, np.asarray(state.key))
-        Fp = carry[2]
-        for _ in range(3):
-            carry = sched.soa_md_step(carry, lambda Rp: Fp)
-        # no per-step key consumption on the internal-RNG path
-        np.testing.assert_array_equal(np.asarray(carry[6]), key_after_init)
-        # seed rides the carry unchanged
-        out = sched.soa_restore(carry, state)
-        assert int(out.tick) == 3 * spec.ratio
 
 
 class TestPerLaneE0:
@@ -477,14 +412,13 @@ class TestPerLaneE0:
         h, qdt, p2q, g2e = 0.00985, 8e-5, 1.327, 123.1
         spec = FusedTickSpec(scheme=scheme, h=h, qdt=qdt,
                              plas_to_quant_vel=p2q, gamma_to_einstein=g2e,
-                             ratio=ratio, L=L, apply_force=True,
-                             internal_rng=False)
+                             ratio=ratio, L=L, apply_force=True)
         return spec
 
     @staticmethod
     def _inputs(spec, n, npad, key=0):
         kr, kv, kf, kq, ko = jax.random.split(jax.random.PRNGKey(key), 5)
-        S, SP = spec.S, spec.SP
+        S = spec.S
         R = jnp.zeros((3, npad), jnp.float32).at[:, :n].set(
             jax.random.uniform(kr, (3, n), jnp.float32, 0, spec.L))
         V = jnp.zeros((3, npad), jnp.float32).at[:, :n].set(
@@ -493,31 +427,31 @@ class TestPerLaneE0:
             jax.random.normal(kf, (3, n), jnp.float32) * 0.5)
         tp = jnp.zeros((1, npad), jnp.float32).at[0, :n].set(
             jnp.abs(jax.random.normal(kq, (n,), jnp.float32)))
-        pre = jnp.zeros((SP, npad), jnp.float32).at[0, :n].set(0.6)
+        pre = jnp.zeros((S, npad), jnp.float32).at[0, :n].set(0.6)
         pre = pre.at[2, :n].set(0.64)
-        pim = jnp.zeros((SP, npad), jnp.float32).at[4, :n].set(0.48)
+        pim = jnp.zeros((S, npad), jnp.float32).at[4, :n].set(0.48)
         rolls = jax.random.uniform(ko, (spec.ratio * 5, npad), jnp.float32)
         return R, V, F, tp, pre, pim, rolls
 
     @staticmethod
-    def _e0_plane(scheme, SP, npad):
-        e0 = np.zeros((SP, 1), np.float32)
+    def _e0_plane(scheme, S, npad):
+        e0 = np.zeros((S, 1), np.float32)
         e0[:scheme.n_states, 0] = scheme.e0
         return jnp.asarray(np.repeat(e0, npad, axis=1))
 
     def test_uniform_plane_matches_baseline(self):
         """A per-lane plane filled with the scheme's own e0 is a no-op:
         bit-identical to the vecs-column baseline."""
-        n = npad = tile = 128
+        n = npad = block = 128
         spec = self._setup(n=n, npad=npad)
         args = self._inputs(spec, n, npad)
         first = jnp.ones((1, 1), jnp.float32)
         base = fused_md_substeps(spec, first, *args[:6], rolls=args[6],
-                                 tile=tile, interpret=True)
+                                 block=block, interpret=True)
         spec_pl = dataclasses.replace(spec, per_lane_e0=True)
-        e0p = self._e0_plane(spec.scheme, spec.SP, npad)
+        e0p = self._e0_plane(spec.scheme, spec.S, npad)
         out = fused_md_substeps(spec_pl, first, *args[:6], rolls=args[6],
-                                e0_lanes=e0p, tile=tile, interpret=True)
+                                e0_lanes=e0p, block=block, interpret=True)
         for a, b in zip(base, out):
             np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
@@ -525,10 +459,10 @@ class TestPerLaneE0:
         """Two lane blocks carrying different (detSP, detDP) e0 vectors
         evolve bit-identically to two kernels whose specs were built from
         those detunings (same rolls per block)."""
-        n = npad = tile = 128
+        n = npad = block = 128
         points = [(-1.0, 1.0), (-0.4, 0.25)]
         specs = [self._setup(d, dd, n=n, npad=npad) for d, dd in points]
-        SP = specs[0].SP
+        S = specs[0].S
         args = [self._inputs(s, n, npad, key=7 + i)
                 for i, s in enumerate(specs)]
         first = jnp.zeros((1, 1), jnp.float32)
@@ -537,14 +471,14 @@ class TestPerLaneE0:
         spec_pl = dataclasses.replace(specs[0], per_lane_e0=True)
         cat = lambda i: jnp.concatenate([args[0][i], args[1][i]], axis=1)
         e0p = jnp.concatenate(
-            [self._e0_plane(s.scheme, SP, npad) for s in specs], axis=1)
+            [self._e0_plane(s.scheme, S, npad) for s in specs], axis=1)
         out = fused_md_substeps(spec_pl, first, cat(0), cat(1), cat(2),
                                 cat(3), cat(4), cat(5), rolls=cat(6),
-                                e0_lanes=e0p, tile=tile, interpret=True)
+                                e0_lanes=e0p, block=block, interpret=True)
 
         for j, spec_j in enumerate(specs):
             ref = fused_md_substeps(spec_j, first, *args[j][:6],
-                                    rolls=args[j][6], tile=tile,
+                                    rolls=args[j][6], block=block,
                                     interpret=True)
             sl = slice(j * npad, (j + 1) * npad)
             for a, b in zip(ref, out):
@@ -552,15 +486,64 @@ class TestPerLaneE0:
                                               np.asarray(b[:, sl]))
 
     def test_e0_lanes_validation(self):
-        n = npad = tile = 128
+        n = npad = block = 128
         spec = self._setup(n=n, npad=npad)
         spec_pl = dataclasses.replace(spec, per_lane_e0=True)
         args = self._inputs(spec, n, npad)
         first = jnp.ones((1, 1), jnp.float32)
         with pytest.raises(ValueError, match="e0_lanes"):
             fused_md_substeps(spec_pl, first, *args[:6], rolls=args[6],
-                              tile=tile, interpret=True)
-        bad = jnp.zeros((spec.SP, npad + 128), jnp.float32)
+                              block=block, interpret=True)
+        bad = jnp.zeros((spec.S, npad + 128), jnp.float32)
         with pytest.raises(ValueError, match="e0_lanes"):
             fused_md_substeps(spec_pl, first, *args[:6], rolls=args[6],
-                              e0_lanes=bad, tile=tile, interpret=True)
+                              e0_lanes=bad, block=block, interpret=True)
+
+
+@pytest.mark.parametrize("feature", ["plain", "expansion_renorm",
+                                     "per_lane_e0", "per_lane_om"])
+def test_kernel_lowers_to_triton_for_cuda(feature):
+    """The kernel lowers through the Pallas Triton route for the CUDA
+    platform (exported here with no GPU attached): every primitive it
+    uses has a Triton lowering rule and every load/store is a power-of-two
+    [block] row.  Compilation to PTX happens on the card itself."""
+    from mdqtplasmasims_tpu.experiments.laser_cooling import (
+        CoolingConfig, om_split_schemes)
+    n, npad, ratio = 96, 128, 3
+    scheme = with_recoil(sr12_cooling(), 9.1e-4, 3.6e-4)
+    kw = {}
+    if feature == "expansion_renorm":
+        kw = dict(exp_c1=0.02, exp_c2=0.001, renormalize=True)
+    elif feature == "per_lane_e0":
+        kw = dict(per_lane_e0=True)
+    elif feature == "per_lane_om":
+        sp, dp = om_split_schemes(CoolingConfig())
+        kw = dict(per_lane_om=True, scheme_sp=sp, scheme_dp=dp)
+    spec = FusedTickSpec(scheme=scheme, h=0.00985, qdt=8e-5,
+                         plas_to_quant_vel=1.327, gamma_to_einstein=123.1,
+                         ratio=ratio, L=PlasmaUnits.box_length(n),
+                         apply_force=True, **kw)
+    S = spec.S
+    z = lambda rows: jax.ShapeDtypeStruct((rows, npad), jnp.float32)
+    args = [jax.ShapeDtypeStruct((), jnp.float32), z(3), z(3), z(3), z(1),
+            z(S), z(S), z(ratio * 5), jax.ShapeDtypeStruct((), jnp.float32)]
+    extra = {}
+    if spec.per_lane_e0:
+        extra["e0_lanes"] = z(S)
+    if spec.per_lane_om:
+        extra["om_lanes"] = z(2)
+    names = list(extra)
+
+    def f(first, R, V, F, tp, pre, pim, rolls, tick0, *lanes):
+        return fused_md_substeps(spec, first, R, V, F, tp, pre, pim, rolls,
+                                 tick0=tick0, block=64,
+                                 **dict(zip(names, lanes)))
+
+    exported = jax.export.export(
+        jax.jit(f), platforms=["cuda"],
+        disabled_checks=[jax.export.DisabledSafetyCheck.custom_call(
+            "__gpu$xla.gpu.triton")])(*args, *extra.values())
+    text = exported.mlir_module()
+    assert "__gpu$xla.gpu.triton" in text
+    assert "fused_tick_block" in text
+    assert "num_warps = 2" in text            # block 64 -> 2 warps

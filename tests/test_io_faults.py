@@ -214,8 +214,7 @@ def test_resume_state_names_truncated_wvfns(good_ckpt):
     with open(p, "w") as f:
         f.writelines(lines[:-4])
     with pytest.raises(ValueError, match="wvFns_timestep"):
-        resume_state(good_ckpt, C0, CoolingConfig(n0=N, dtype="float64",
-                                                  use_pallas=False))
+        resume_state(good_ckpt, C0, CoolingConfig(n0=N, dtype="float64"))
 
 
 def test_frozen_resume_names_spinup_mismatch(good_ckpt):
@@ -226,8 +225,7 @@ def test_frozen_resume_names_spinup_mismatch(good_ckpt):
     with open(p, "w") as f:
         f.writelines(lines[:-3])
     with pytest.raises(ValueError, match="spinUpIonsList"):
-        resume_run(good_ckpt, C0, FrozenTagConfig(n0=N, dtype="float64",
-                                                  use_pallas=False))
+        resume_run(good_ckpt, C0, FrozenTagConfig(n0=N, dtype="float64"))
 
 
 # ------------------------------------------- pipeline checkpoints (r5) ----

@@ -337,7 +337,7 @@ class TestQuicklook:
             CoolingConfig, run)
         pytest.importorskip("matplotlib")
         cfg = CoolingConfig(n0=16, tmax=0.04, sample_freq=10,
-                            use_pallas=False, dtype="float64",
+                            dtype="float64",
                             vaf_intervals=(0.02,),
                             save_directory=str(tmp_path))
         run(cfg, seed=0)

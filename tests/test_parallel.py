@@ -34,7 +34,7 @@ class TestShardedStep:
     def test_matches_single_device(self):
         """One sharded MD step over (ens=2, ions=4) must equal the
         single-device step for each ensemble member bit-for-bit in f64."""
-        cfg = CoolingConfig(n0=64, use_pallas=False, dtype="float64")
+        cfg = CoolingConfig(n0=64, dtype="float64")
         pu = PlasmaUnits(cfg.density, cfg.ge)
         L = PlasmaUnits.box_length(cfg.n0)
         n_ens, n_ions = 2, 4
@@ -72,7 +72,7 @@ class TestShardedStep:
         from mdqtplasmasims_tpu.ops.yukawa import (yukawa_forces_potential,
                                                    yukawa_potential)
 
-        cfg = CoolingConfig(n0=48, use_pallas=False, dtype="float64")
+        cfg = CoolingConfig(n0=48, dtype="float64")
         pu = PlasmaUnits(cfg.density, cfg.ge)
         L = PlasmaUnits.box_length(cfg.n0)
         n_ens, n_ions = 8, 1
@@ -123,7 +123,7 @@ class TestShardedStep:
         """A full MD step with the ppermute-ring force path == the
         all_gather path (same keys; forces differ only by summation
         order -> 1e-12 f64)."""
-        cfg = CoolingConfig(n0=64, use_pallas=False, dtype="float64")
+        cfg = CoolingConfig(n0=64, dtype="float64")
         pu = PlasmaUnits(cfg.density, cfg.ge)
         L = PlasmaUnits.box_length(cfg.n0)
         n_ens, n_ions = 2, 4
@@ -199,10 +199,10 @@ class TestShardedStep:
 @needs_devices
 def test_ensemble_members_independent():
     """Different jobs produce different trajectories (independent RNG)."""
-    cfg = CoolingConfig(n0=48, use_pallas=False)
+    cfg = CoolingConfig(n0=48)
     keys = jax.random.split(jax.random.PRNGKey(0), 2)
     states = batched_initial_states(_init_one(
-        CoolingConfig(n0=48, use_pallas=False, dtype="float64")), keys)
+        CoolingConfig(n0=48, dtype="float64")), keys)
     assert not np.allclose(np.asarray(states.R[0]), np.asarray(states.R[1]))
 
 

@@ -1,16 +1,15 @@
-"""Multi-chip sharding of the *production* (fused Pallas) kernels.
+"""Multi-device sharding of the production (fused tick-kernel) program.
 
-Round-2 verdict headline: the sharded path must run the same fused
-tick-block kernel + Pallas pair-force kernels a single chip runs, not the
-slow XLA fallbacks.  These tests run that exact program on the virtual
-8-device CPU mesh via Pallas interpret mode (``fused_interpret=True``)
-and pin down:
+The sharded path runs the same fused tick-block kernel + XLA pair forces
+a single device runs.  These tests run that exact program on the virtual
+8-device CPU mesh with the kernel in the Pallas interpreter
+(``fused_interpret=True``) and pin down:
 
 - layout invariance: a folded fused ensemble step gives bit-identical
   trajectories however the ensemble axis is split across devices
   (per-member RNG streams, scheduler.py soa_ens_md_step
   per_member_rolls);
-- the cross-shard rows x cols force kernel == the N3L half-pair kernel;
+- the ion-sharded "gather" force schedule == the unsharded forces;
 - the ion-sharded fused step produces reference forces in situ;
 - run_compiled_sharded end-to-end equality across mesh layouts,
   diagnostics included.
@@ -41,17 +40,15 @@ needs_devices = pytest.mark.skipif(len(jax.devices()) < 8,
 
 def _fused_cfg(**kw):
     kw.setdefault("n0", 48)
-    kw.setdefault("use_pallas", False)     # CPU backend ...
-    kw.setdefault("fused_interpret", True)  # ... but the fused program
+    kw.setdefault("fused_interpret", True)  # the fused program on the CPU
     return CoolingConfig(**kw)
 
 
 def _small_sched(cfg):
-    """Production scheduler with a test-sized QT tile (128 instead of the
-    hardware-tuned >=512) so interpret mode stays fast."""
+    """Production scheduler on the fused path."""
     sched = build_scheduler(cfg)
     assert sched.fused_spec is not None
-    return dataclasses.replace(sched, tile=128)
+    return sched
 
 
 def _members(cfg, n_ens, n_ions, seed=0):
@@ -100,11 +97,11 @@ class TestFusedSharded:
         start = _members(cfg, n_ens, 1, seed=7)
         assert not np.allclose(np.asarray(outs[0].R), np.asarray(start.R))
 
-    def test_cols_kernel_matches_n3l(self):
-        """Full-tile rows x cols force kernel (cross-shard path) == the
-        half-pair N3L kernel when the column set is the full ion set."""
+    def test_cols_gather_matches_member_forces(self):
+        """Rows x cols forces (the cross-shard path) == the member-batched
+        forces when the column set is the member's full ion set."""
         from mdqtplasmasims_tpu.ops.yukawa import (
-            yukawa_forces_n3l_soa_batched, yukawa_forces_soa_cols_batched)
+            yukawa_forces_soa_batched, yukawa_forces_soa_cols_batched)
 
         e, npad, n = 2, 128, 100
         L = PlasmaUnits.box_length(n)
@@ -114,131 +111,50 @@ class TestFusedSharded:
         mask = jnp.zeros((npad,), jnp.float64).at[:n].set(1.0)
         R = R * mask[None, :, None]   # padded lanes at origin, masked out
         Rp = _fold_rp(R)
-        mask_row = mask[None, :]
+        masks = jnp.broadcast_to(mask[None], (e, npad))
 
-        F_n3l = yukawa_forces_n3l_soa_batched(Rp, mask_row, e, L, ldeb,
-                                              tile=128, interpret=True)
-        F_cols = yukawa_forces_soa_cols_batched(Rp, R, mask, e, L, ldeb,
-                                                tile=128, interpret=True)
-        np.testing.assert_allclose(
-            np.asarray(F_cols).reshape(3, e, npad)[:, :, :n],
-            np.asarray(F_n3l).reshape(3, e, npad)[:, :, :n],
-            rtol=1e-11, atol=1e-12)
-
-    def test_cross_n3l_kernel_matches_full_tile(self):
-        """The cross-block half-pair kernel pays each (row, col) pair
-        once and must reproduce BOTH full-tile evaluations: its row
-        forces == rows x cols(B), its reaction == rows(B) x cols(A)."""
-        from mdqtplasmasims_tpu.ops.yukawa import (
-            yukawa_forces_cross_n3l_soa_batched,
-            yukawa_forces_soa_cols_batched)
-
-        e, npad, n = 2, 128, 100
-        L = PlasmaUnits.box_length(2 * n)
-        ldeb = PlasmaUnits(2.0, 0.1).debye_length
-        ka, kb = jax.random.split(jax.random.PRNGKey(2))
-        mask = jnp.zeros((npad,), jnp.float64).at[:n].set(1.0)
-        A = jax.random.uniform(ka, (e, npad, 3), jnp.float64, 0, L)
-        B = jax.random.uniform(kb, (e, npad, 3), jnp.float64, 0, L)
-        A = A * mask[None, :, None]
-        B = B * mask[None, :, None]
-        mrow = mask[None, :]
-        cmask = jnp.broadcast_to(mask[None], (e, npad))
-
-        F, G = yukawa_forces_cross_n3l_soa_batched(
-            _fold_rp(A), mrow, B, cmask, e, L, ldeb, tile=128,
-            interpret=True)
-        # the full-tile kernel leaves garbage on padded ROW lanes (its
-        # documented contract); mask them for the comparison — the cross
-        # kernel zeroes them in the tile math
-        F_ref = yukawa_forces_soa_cols_batched(
-            _fold_rp(A), B, cmask, e, L, ldeb, tile=128, interpret=True)
-        G_ref = yukawa_forces_soa_cols_batched(
-            _fold_rp(B), A, cmask, e, L, ldeb, tile=128, interpret=True)
-        m2 = np.concatenate([np.asarray(mask)] * e)[None, :]
-        np.testing.assert_allclose(np.asarray(F) * m2,
-                                   np.asarray(F_ref) * m2,
+        F_mem = yukawa_forces_soa_batched(Rp, mask[None], e, L, ldeb)
+        F_cols = yukawa_forces_soa_cols_batched(Rp, R, masks, masks, e, L,
+                                                ldeb)
+        np.testing.assert_allclose(np.asarray(F_cols), np.asarray(F_mem),
                                    rtol=1e-11, atol=1e-12)
-        np.testing.assert_allclose(
-            np.asarray(G) * np.asarray(cmask)[:, :, None],
-            np.swapaxes(np.asarray(G_ref).reshape(3, e, npad),
-                        0, 1).swapaxes(1, 2)
-            * np.asarray(cmask)[:, :, None],
-            rtol=1e-11, atol=1e-12)
 
     @pytest.mark.parametrize("n_ions", [2, 3, 4])
-    def test_ring_n3l_forces_match_gather(self, n_ions):
-        """The cross-shard N3L ring schedule (each unordered tile pair
-        once, reactions ppermuted home) == the gather full-tile path ==
-        the unsharded half-pair kernel, on even (antipodal-masked) and
-        odd rings."""
+    def test_gather_forces_match_unsharded(self, n_ions):
+        """The gather schedule under shard_map (parallel/ensemble.
+        gather_soa_forces: all_gather of positions + masks, local rows)
+        == the unsharded member forces, with padded lanes on every
+        shard."""
         from jax import shard_map
         from jax.sharding import PartitionSpec as P
-        from mdqtplasmasims_tpu.ops.yukawa import (
-            yukawa_forces_n3l_soa_batched)
-        from mdqtplasmasims_tpu.parallel.ensemble import (
-            ring_n3l_fused_forces)
+        from mdqtplasmasims_tpu.ops.yukawa import yukawa_forces_soa_batched
+        from mdqtplasmasims_tpu.parallel.ensemble import gather_soa_forces
         from mdqtplasmasims_tpu.parallel.mesh import ION_AXIS
 
-        cfg = _fused_cfg(n0=48 * n_ions)
-        pu = PlasmaUnits(cfg.density, cfg.ge)
-        sched = _small_sched(cfg)
-        e, n_loc, npad = 2, 48, 128
+        e, n_loc, npad = 2, 24, 32
+        L = PlasmaUnits.box_length(n_loc * n_ions)
+        ldeb = PlasmaUnits(2.0, 0.1).debye_length
         mesh = make_mesh(1, n_ions)
-        key = jax.random.PRNGKey(5)
-        R = jax.random.uniform(key, (e, n_ions * npad, 3), jnp.float32,
-                               0, sched.L)
-        mask = jnp.zeros((n_ions * npad,), jnp.float32)
+        R = jax.random.uniform(jax.random.PRNGKey(5), (e, n_ions * npad, 3),
+                               jnp.float64, 0, L)
+        mask = jnp.zeros((n_ions * npad,), jnp.float64)
         for s in range(n_ions):                  # n_loc real ions/shard
             mask = mask.at[s * npad: s * npad + n_loc].set(1.0)
         R = R * mask[None, :, None]
-        mrows = jnp.zeros((1, npad), jnp.float32).at[0, :n_loc].set(1.0)
+        mrows = jnp.zeros((1, npad), jnp.float64).at[0, :n_loc].set(1.0)
 
         def local(R_block):                      # [E, npad, 3] local
-            fn = ring_n3l_fused_forces(sched, pu.debye_length, e, npad,
-                                       mrows)
-            F = fn(_fold_rp(R_block))            # [3, E*npad]
+            F = gather_soa_forces(L, ldeb, e, npad, mrows)(_fold_rp(R_block))
             return jnp.swapaxes(F.reshape(3, e, npad), 0, 1)
 
-        F_ring = shard_map(local, mesh=mesh,
-                           in_specs=(P(None, ION_AXIS),),
-                           out_specs=P(None, None, ION_AXIS),
-                           check_vma=False)(R)       # [E, 3, I*npad]
-        # unsharded reference: the member-batched half-pair kernel over
-        # each member's full ion set (the mask row selects real lanes)
-        F_ref = yukawa_forces_n3l_soa_batched(
-            _fold_rp(R), jnp.broadcast_to(mask[None],
-                                          (e, n_ions * npad)),
-            e, sched.L, pu.debye_length, tile=128, interpret=True)
+        F_sh = shard_map(local, mesh=mesh, in_specs=(P(None, ION_AXIS),),
+                         out_specs=P(None, None, ION_AXIS))(R)
+        F_ref = yukawa_forces_soa_batched(
+            _fold_rp(R), jnp.broadcast_to(mask[None], (e, n_ions * npad)),
+            e, L, ldeb)
         F_ref = jnp.swapaxes(F_ref.reshape(3, e, n_ions * npad), 0, 1)
-        np.testing.assert_allclose(
-            np.asarray(F_ring) * np.asarray(mask)[None, None, :],
-            np.asarray(F_ref) * np.asarray(mask)[None, None, :],
-            rtol=1e-4, atol=1e-6)
-
-    @pytest.mark.parametrize("ion_forces", ["gather", "ring_n3l"])
-    def test_ring_n3l_full_step_matches(self, ion_forces):
-        """A full fused MD step on the (ens=2, ions=2) mesh agrees
-        between the ring-N3L and gather force schedules and with the
-        unsharded force kernel (f32 summation-order tolerance)."""
-        from mdqtplasmasims_tpu.ops.yukawa import yukawa_forces_potential
-
-        cfg = _fused_cfg(n0=64)
-        pu = PlasmaUnits(cfg.density, cfg.ge)
-        sched = _small_sched(cfg)
-        mesh = make_mesh(2, 2)
-        step = make_sharded_fused_step(sched, pu.debye_length, mesh,
-                                       n_steps=1, ion_forces=ion_forces)
-        states = _members(cfg, 2, 2, seed=3)
-        out = jax.device_get(step(states))
-        for i in range(2):
-            F_ref, _ = yukawa_forces_potential(
-                jnp.asarray(states.R[i], jnp.float32), sched.L,
-                pu.debye_length)
-            np.testing.assert_allclose(np.asarray(out.F[i]),
-                                       np.asarray(F_ref),
-                                       rtol=2e-4, atol=1e-5)
-        assert int(out.tick[0]) == cfg.ratio
+        np.testing.assert_allclose(np.asarray(F_sh), np.asarray(F_ref),
+                                   rtol=1e-10, atol=1e-12)
 
     def test_ion_sharded_forces_in_situ(self):
         """On an (ens=2, ions=2) mesh the fused step computes each
@@ -394,7 +310,7 @@ class TestFusedSharded:
                                        rtol=1e-5)
 
     def test_cross_mode_resume(self, tmp_path):
-        """Walltime chains can move between chip counts: a single-device
+        """Walltime chains can move between device counts: a single-device
         ensemble checkpoint resumes onto a mesh and a mesh checkpoint
         resumes single-device (run_ensemble normalizes the per-job key
         payload [2] vs [I,2] to the mode it runs in)."""

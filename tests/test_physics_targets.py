@@ -1,7 +1,7 @@
 """Known-physics targets (the reference's substitute for tests, SURVEY.md
 section 4, made into actual tests): disorder-induced heating curve, DIH
 equilibrium coupling, EIT dark-state resonance, f32-vs-f64 error budget,
-and the production-length TPU soak assertions (artifacts/soak)."""
+and the production-length soak assertions (artifacts/soak)."""
 
 import json
 import os
@@ -107,17 +107,17 @@ class TestDIH:
 
 
 SOAK_SUMMARY = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "artifacts", "soak", "summary.json")
+    os.path.abspath(__file__))), "artifacts", "soak", "physics.json")
 
 
 @pytest.fixture(scope="module")
 def soak():
-    """Headline numbers from the production-length TPU soak
-    (tools/soak.py; one full reference-scale run per family on real
-    hardware, .dat outputs archived under artifacts/soak).  Runs on any
-    backend — the assertions read the archived summary."""
+    """Headline physics from the production-length soak (tools/soak.py;
+    one full reference-scale run per family, .dat outputs archived under
+    artifacts/soak).  Runs on any backend — the assertions read the
+    archived physics record."""
     if not os.path.exists(SOAK_SUMMARY):
-        pytest.skip("no soak archive; run tools/soak.py on the TPU")
+        pytest.skip("no soak archive; run tools/soak.py on a GPU")
     with open(SOAK_SUMMARY) as f:
         return json.load(f)
 
@@ -143,7 +143,7 @@ class TestCurveLevel:
         from mdqtplasmasims_tpu.units import K_RATIO_1033
 
         cfg = CoolingConfig(n0=256, tmax=3.0, sample_freq=50,
-                            use_pallas=False, detuning=det_sp,
+                            detuning=det_sp,
                             detuning_dp=det_dp,
                             save_directory=str(tmp_path))
         run(cfg)
@@ -195,7 +195,7 @@ class TestCurveLevel:
 
     def test_cooling_slope_from_energies_dat(self):
         """Fit the laser-cooling slope from the archived production-scale
-        energies.dat (N=3500, tmax=30, real TPU run under
+        energies.dat (N=3500, tmax=30, production run under
         artifacts/soak): post-DIH T_x must decay quasi-exponentially at
         the thesis-Ch.4-scale rate (~0.01 per plasma time at det=-1,
         om=1 — the same curve the compiled reference reproduced at 2.8%
@@ -291,14 +291,12 @@ class TestFullScaleSoak:
 
     def test_cooling_beyond_reference_scale(self, soak):
         """N=14000 (4x the reference's practical max; its own sizing rule
-        t <= 50/(N/3000)^2 per 8 h would need ~6 weeks) completes a full
-        tmax=30 run in minutes with the same physics as N=3500 —
-        finite-size effects on DIH and steady-state populations are
-        small at these N."""
+        t <= 50/(N/3000)^2 per 8 h would need ~6 weeks) runs a full
+        tmax=30 with the same physics as N=3500 — finite-size effects on
+        DIH and steady-state populations are small at these N."""
         if "cooling_n14000" not in soak:
             pytest.skip("large-N soak not archived yet")
         b, c = soak["cooling_n14000"], soak["cooling"]
-        assert b["wall_s"] < 900
         assert abs(b["dih_peak_ekin_x"] - c["dih_peak_ekin_x"]) < 0.02
         assert abs(b["cooling_ratio"] - c["cooling_ratio"]) < 0.06
         assert abs(b["pop_s"] - c["pop_s"]) < 0.03
@@ -376,7 +374,7 @@ class TestAnalysisPhysics:
 
     def test_soak_green_kubo_d(self):
         """D from the production transport soak's VAF (Gamma=3,
-        kappa=0.5, N=4096 on the real v5e) sits in the physically
+        kappa=0.5, N=4096) sits in the physically
         validated band, with the VAF(0) = 3 T_rec sum rule holding
         against the soak's own temperature record."""
         from mdqtplasmasims_tpu.analysis import green_kubo_diffusion

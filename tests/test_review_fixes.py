@@ -53,7 +53,7 @@ def test_run_resume_prefers_newer_ascii(tmp_path):
     chaining), only the ASCII conditions_/wvFns_/ions_ files advance;
     run(resume=True) must resume from the newer ASCII checkpoint, not
     replay from the stale native .npz."""
-    base = dict(n0=32, sample_freq=10, use_pallas=False,
+    base = dict(n0=32, sample_freq=10,
                 dtype="float64")
     cfg1 = CoolingConfig(**base, tmax=0.2,
                          save_directory=str(tmp_path / "one"))
@@ -83,7 +83,7 @@ def test_run_resume_prefers_newer_ascii(tmp_path):
 def test_run_resume_continues_from_ascii(tmp_path):
     """The interop chain with work remaining: resume from a newer ASCII
     checkpoint mid-run and simulate only the segments past it."""
-    base = dict(n0=32, sample_freq=10, use_pallas=False,
+    base = dict(n0=32, sample_freq=10,
                 dtype="float64")
     cfg1 = CoolingConfig(**base, tmax=0.2,
                          save_directory=str(tmp_path / "one"))
@@ -122,7 +122,7 @@ def test_frozen_resume_prefers_newer_ascii(tmp_path):
     chaining is the documented walltime workflow."""
     from mdqtplasmasims_tpu.experiments.frozen_tagging import frozen_tag_dir
     base = dict(variant="422linear", n0=32, tstart=1.0, timestep=0.01,
-                sample_freq=20, tpump_seconds=2e-7, use_pallas=False)
+                sample_freq=20, tpump_seconds=2e-7)
     cfg1 = FrozenTagConfig(**base, tmax=3.1,
                            save_directory=str(tmp_path / "one"))
     run_frozen(cfg1)
@@ -153,7 +153,7 @@ def test_midrun_checkpoint_carries_rng_key(tmp_path):
     crash-resume continues the checkpointed stream: the chained run is
     bit-identical to the uninterrupted one."""
     base = dict(n0=32, sample_freq=10, checkpoint_every_segments=1,
-                use_pallas=False, dtype="float64")
+                dtype="float64")
     cfg1 = CoolingConfig(**base, tmax=0.2,
                          save_directory=str(tmp_path / "chained"))
     run_cooling(cfg1)
@@ -190,7 +190,7 @@ def test_poisson_mesh_resume_rounds_to_ion_shards(tmp_path):
     mesh = make_mesh(n_ens=2, n_ions=shards)
     cfg1 = CoolingConfig(n0=48, tmax=0.1, sample_freq=5,
                          checkpoint_every_segments=5, exact_n=False,
-                         use_pallas=False, fused_interpret=True,
+                         fused_interpret=True,
                          save_directory=str(tmp_path))
     run_ensemble(cfg1, n_jobs=2, seed=seed, mesh=mesh)
     cfg2 = dataclasses.replace(cfg1, tmax=0.2)
@@ -213,7 +213,7 @@ def test_vaf_interval_before_first_sample(tmp_path):
     its origin to sample 0 on a fresh run (nearest-sample convention at
     the grid edge) instead of being silently dropped."""
     cfg = CoolingConfig(n0=32, tmax=0.1, sample_freq=10,
-                        vaf_intervals=(0.01,), use_pallas=False,
+                        vaf_intervals=(0.01,),
                         dtype="float64", save_directory=str(tmp_path))
     run_cooling(cfg)
     d = _cooling_dir(tmp_path)

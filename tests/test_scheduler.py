@@ -187,7 +187,7 @@ def test_expansion_detuning():
     from mdqtplasmasims_tpu.units import expansion_detuning
 
     cfg = CoolingConfig(n0=48, frac_of_sig=1.0, sig0=0.04, te=19.0,
-                        use_pallas=False, dtype="float64")
+                        dtype="float64")
     f = expansion_detuning_fn(cfg)
     for t in (0.0, 1.0, 7.5, 30.0, 120.0):
         a = float(f(t))
@@ -202,7 +202,7 @@ def test_expansion_detuning():
     sched_on = build_scheduler(cfg)
     assert sched_on.exp_det_fn is not None
     sched_off = build_scheduler(CoolingConfig(
-        n0=48, frac_of_sig=0.0, use_pallas=False, dtype="float64"))
+        n0=48, frac_of_sig=0.0, dtype="float64"))
     st = initial_state(cfg)
     st = st._replace(tick=jnp.asarray(5000, jnp.int32),
                      t=jnp.asarray(5000 * cfg.qdt, jnp.float64))

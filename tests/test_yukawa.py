@@ -79,90 +79,6 @@ def test_uneven_chunking(system):
     assert np.abs(F_a - F_b).max() < 1e-10
 
 
-def test_n3l_kernel_interpret(system):
-    """Half-pair Pallas kernel (interpret mode) matches the XLA path,
-    including the padded-lane handling (n=300 is not a tile multiple)."""
-    from mdqtplasmasims_tpu.ops.yukawa import yukawa_forces_n3l_pallas
-    R, L, ldeb = system
-    Rj = jnp.asarray(R, jnp.float32)
-    F_ref = np.array(yukawa_forces(Rj, L, ldeb, chunk=128))
-    F = np.array(yukawa_forces_n3l_pallas(Rj, L, ldeb, tile=128,
-                                          interpret=True))
-    scale = np.abs(F_ref).max()
-    assert np.abs(F - F_ref).max() < 2e-5 * scale
-    assert np.abs(F.sum(0)).max() < 2e-5 * scale
-
-
-@pytest.mark.parametrize("n", [120, 250, 480, 640, 1600, 2000])
-def test_n3l_triangle_schedule(n):
-    """The triangle-enumerated half-pair schedule must cover every
-    unordered tile pair exactly once across grid sizes (nt = 1, 2, 4, 5,
-    13, 16 at tile=128), including the single-tile and even/odd cases."""
-    from mdqtplasmasims_tpu.ops.yukawa import (yukawa_forces,
-                                               yukawa_forces_n3l_pallas)
-    pu = PlasmaUnits(density=2.0, Ge=0.1)
-    L = PlasmaUnits.box_length(n)
-    rng = np.random.default_rng(n)
-    Rj = jnp.asarray(rng.uniform(0, L, (n, 3)), jnp.float32)
-    F_ref = np.array(yukawa_forces(Rj, L, pu.debye_length, chunk=128))
-    F = np.array(yukawa_forces_n3l_pallas(Rj, L, pu.debye_length,
-                                          tile=128, interpret=True))
-    scale = np.abs(F_ref).max()
-    assert np.abs(F - F_ref).max() < 2e-5 * scale
-
-
-def test_soa_force_tile_divides_qt_padding():
-    """The SoA loop pads with the QT tile (512/896/1024/1792/3584 per
-    core.scheduler.auto_qt_tile); the auto force tile must divide every
-    such npad — regression for the n0=600 (npad=896) trace crash."""
-    from mdqtplasmasims_tpu.core.scheduler import auto_qt_tile
-    from mdqtplasmasims_tpu.ops.yukawa import soa_force_tile
-    for n in (64, 300, 600, 1000, 3500, 6000, 14000, 56000):
-        t = auto_qt_tile(n)
-        npad = -(-max(n, t) // t) * t
-        ft = soa_force_tile(npad)
-        assert npad % ft == 0, (n, npad, ft)
-
-
-def test_n3l_soa_non512_padding():
-    """yukawa_forces_n3l_soa with a QT-tile padding 512 does not divide
-    (npad=896 at n=600) must agree with the XLA forces — the auto force
-    tile drops to 128 there."""
-    from mdqtplasmasims_tpu.ops.yukawa import (yukawa_forces,
-                                               yukawa_forces_n3l_soa)
-    n, npad = 600, 896
-    pu = PlasmaUnits(density=2.0, Ge=0.1)
-    L = PlasmaUnits.box_length(n)
-    rng = np.random.default_rng(6)
-    R = rng.uniform(0, L, (n, 3)).astype(np.float32)
-    Rp = jnp.zeros((3, npad), jnp.float32).at[:, :n].set(R.T)
-    mask_row = jnp.zeros((1, npad), jnp.float32).at[0, :n].set(1.0)
-    F = np.asarray(yukawa_forces_n3l_soa(Rp, mask_row, L,
-                                         pu.debye_length, interpret=True))
-    F_ref = np.asarray(yukawa_forces(jnp.asarray(R), L, pu.debye_length,
-                                     chunk=128))
-    scale = np.abs(F_ref).max()
-    assert np.abs(F[:, :n].T - F_ref).max() < 2e-5 * scale
-    assert np.abs(F[:, n:]).max() == 0.0
-
-
-def test_n3l_kernel_mask(system):
-    """Masked-out ions neither exert nor receive force through either the
-    direct or the reaction (third-law) path of the half-pair kernel."""
-    from mdqtplasmasims_tpu.ops.yukawa import yukawa_forces_n3l_pallas
-    R, L, ldeb = system
-    n = R.shape[0]
-    mask = np.ones(n, np.float32)
-    mask[n // 2:] = 0.0
-    F_np, _ = brute_force(R, L, ldeb, mask)
-    F = np.array(yukawa_forces_n3l_pallas(
-        jnp.asarray(R, jnp.float32), L, ldeb,
-        mask=jnp.asarray(mask), tile=128, interpret=True))
-    scale = np.abs(F_np).max()
-    assert np.abs(F - F_np).max() < 2e-5 * scale
-    assert np.abs(F[n // 2:]).max() == 0.0
-
-
 def test_mc_family_equivalence(system):
     """The MC family force law exp(-kr)(1/r^3 + k/r^2) equals the cooling
     family law (1/r + 1/lDeb) exp(-r/lDeb)/r^2 with k = 1/lDeb."""
@@ -179,73 +95,120 @@ def test_mc_family_equivalence(system):
     assert np.abs(F - F_mc).max() < 1e-10
 
 
-def test_n3l_batched_kernel_interpret(system):
-    """Batched half-pair kernel: each ensemble member matches the
-    single-system kernel and jobs stay uncoupled."""
-    from mdqtplasmasims_tpu.ops.yukawa import (
-        yukawa_forces_n3l_pallas, yukawa_forces_n3l_pallas_batched)
+def _planes(R, npad):
+    """[N, 3] positions -> padded [3, npad] lane planes + [1, npad] mask."""
+    n = R.shape[0]
+    Rp = jnp.zeros((3, npad), R.dtype).at[:, :n].set(R.T)
+    return Rp, jnp.zeros((1, npad), R.dtype).at[0, :n].set(1.0)
+
+
+@pytest.mark.parametrize("n,npad", [(120, 128), (300, 384), (600, 640),
+                                    (1000, 1024)])
+def test_soa_planes_match_rows(n, npad):
+    """Forces from the fused loop's padded [3, Np] planes equal the [N, 3]
+    path on real lanes, and padded lanes feel no force."""
+    from mdqtplasmasims_tpu.ops.yukawa import yukawa_forces_soa
+    pu = PlasmaUnits(density=2.0, Ge=0.1)
+    L = PlasmaUnits.box_length(n)
+    R = jnp.asarray(np.random.default_rng(n).uniform(0, L, (n, 3)))
+    Rp, mask_row = _planes(R, npad)
+    F = np.asarray(yukawa_forces_soa(Rp, mask_row, L, pu.debye_length))
+    F_ref, _ = brute_force(np.asarray(R), L, pu.debye_length)
+    assert np.abs(F[:, :n].T - F_ref).max() < 1e-10
+    assert np.abs(F[:, n:]).max() == 0.0
+
+
+@pytest.mark.parametrize("per_member", [False, True])
+def test_soa_batched_masked_forces(system, per_member):
+    """Member-batched forces on the folded [3, E*npad] layout: each
+    member equals its own brute-force sum under its mask (a shared
+    [1, npad] row or per-member [E, npad] rows, the Poissonian-N fold),
+    and members stay uncoupled."""
+    from mdqtplasmasims_tpu.ops.yukawa import yukawa_forces_soa_batched
     R, L, ldeb = system
-    rng = np.random.default_rng(7)
-    RE = jnp.asarray(np.stack([R, rng.uniform(0, L, R.shape)]), jnp.float32)
-    FE = np.array(yukawa_forces_n3l_pallas_batched(RE, L, ldeb, tile=128,
-                                                   interpret=True))
-    for e in range(2):
-        F1 = np.array(yukawa_forces_n3l_pallas(RE[e], L, ldeb, tile=128,
-                                               interpret=True))
-        np.testing.assert_array_equal(FE[e], F1)
+    n, npad, e = R.shape[0], 384, 2
+    rng = np.random.default_rng(3)
+    RE = np.stack([R, rng.uniform(0, L, R.shape)])
+    masks = np.zeros((e, npad))
+    masks[:, :n] = 1.0
+    if per_member:
+        masks[1, n - 40:] = 0.0
+    RE = RE * masks[:, :n, None]
+    Rp = np.zeros((3, e, npad))
+    Rp[:, :, :n] = np.transpose(RE, (2, 0, 1))
+    rows = masks if per_member else masks[:1]
+    F = np.asarray(yukawa_forces_soa_batched(
+        jnp.asarray(Rp.reshape(3, e * npad)), jnp.asarray(rows), e, L,
+        ldeb)).reshape(3, e, npad)
+    for j in range(e):
+        F_ref, _ = brute_force(RE[j], L, ldeb, masks[j, :n])
+        assert np.abs(F[:, j, :n].T - F_ref).max() < 1e-10
+        assert np.abs(F[:, j, n:]).max() == 0.0
 
 
-class TestDataCarriedLdeb:
-    """Kappa sweeps: when ``ldeb`` is a jax array the N3L kernels read
-    1/ldeb from the position operand's spare column instead of a
-    compile-time constant (_half_pair_tile), so one compiled program
-    serves members with different screening lengths."""
+@pytest.mark.parametrize("n_shards", [2, 3, 4])
+def test_cols_gather_matches_full_sum(n_shards):
+    """The ion-sharded "gather" schedule: each shard's rows against the
+    all-gathered columns sum to the unsharded forces (masked padding on
+    every shard, per-member masks)."""
+    from mdqtplasmasims_tpu.ops.yukawa import (
+        yukawa_forces_soa_batched, yukawa_forces_soa_cols_batched)
+    pu = PlasmaUnits(density=2.0, Ge=0.1)
+    e, n_loc, npad = 2, 40, 64
+    L = PlasmaUnits.box_length(n_loc * n_shards)
+    rng = np.random.default_rng(n_shards)
+    mask = np.zeros((e, n_shards * npad))
+    for s in range(n_shards):
+        mask[:, s * npad:s * npad + n_loc] = 1.0
+    R = rng.uniform(0, L, (e, n_shards * npad, 3)) * mask[:, :, None]
+    fold = lambda x: jnp.asarray(np.transpose(x, (2, 0, 1)).reshape(3, -1))
+    F_full = np.asarray(yukawa_forces_soa_batched(
+        fold(R), jnp.asarray(mask), e, L, pu.debye_length)).reshape(
+            3, e, n_shards * npad)
+    for s in range(n_shards):
+        sl = slice(s * npad, (s + 1) * npad)
+        F_s = np.asarray(yukawa_forces_soa_cols_batched(
+            fold(R[:, sl]), jnp.asarray(R), jnp.asarray(mask),
+            jnp.asarray(mask[:, sl]), e, L, pu.debye_length))
+        np.testing.assert_allclose(F_s.reshape(3, e, npad),
+                                   F_full[:, :, sl], rtol=1e-11,
+                                   atol=1e-12)
+
+
+class TestTracedLdeb:
+    """Kappa sweeps (transport family): the screening length can be a
+    traced scalar, so one compiled program serves members with different
+    ldeb."""
 
     def test_traced_ldeb_matches_static(self, system):
-        from mdqtplasmasims_tpu.ops.yukawa import yukawa_forces_n3l_pallas
         R, L, ldeb = system
-        R32 = jnp.asarray(R, jnp.float32)
-        F_static = np.array(yukawa_forces_n3l_pallas(
-            R32, L, ldeb, tile=128, interpret=True))
-        # f64 scalar: 1/ldeb rounds to f32 exactly as the static
-        # trace-time constant does -> bit equality
-        F_data = np.array(yukawa_forces_n3l_pallas(
-            R32, L, jnp.asarray(ldeb), tile=128, interpret=True))
-        np.testing.assert_array_equal(F_static, F_data)
-
-    def test_batched_per_member_ldeb(self, system):
-        """[E] ldeb array: each member's forces equal a static-ldeb call
-        at that member's screening length."""
-        from mdqtplasmasims_tpu.ops.yukawa import (
-            yukawa_forces_n3l_pallas, yukawa_forces_n3l_pallas_batched)
-        R, L, ldeb = system
-        rng = np.random.default_rng(11)
-        RE = jnp.asarray(np.stack([R, rng.uniform(0, L, R.shape)]),
-                         jnp.float32)
-        ldebs = np.asarray([ldeb, 0.5 * ldeb], np.float32)
-        FE = np.array(yukawa_forces_n3l_pallas_batched(
-            RE, L, jnp.asarray(ldebs), tile=128, interpret=True))
-        for e in range(2):
-            F1 = np.array(yukawa_forces_n3l_pallas(
-                RE[e], L, float(ldebs[e]), tile=128, interpret=True))
-            np.testing.assert_allclose(FE[e], F1, rtol=1e-6, atol=1e-6)
-        assert np.abs(FE[1] - np.array(yukawa_forces_n3l_pallas(
-            RE[1], L, ldeb, tile=128, interpret=True))).max() > 1e-3
+        Rj = jnp.asarray(R)
+        F_static = np.asarray(yukawa_forces(Rj, L, ldeb))
+        F_traced = np.asarray(jax.jit(
+            lambda r, ld: yukawa_forces(r, L, ld))(Rj, jnp.asarray(ldeb)))
+        np.testing.assert_allclose(F_traced, F_static, rtol=1e-12,
+                                   atol=1e-14)
 
     def test_vmapped_traced_ldeb(self, system):
-        """The transport sweep's actual composition: vmap over members
-        whose traced ldeb differs, one pallas program."""
-        from mdqtplasmasims_tpu.ops.yukawa import yukawa_forces_n3l_pallas
+        """The transport sweep's composition: vmap over members whose
+        traced ldeb differs, each equal to its brute-force sum."""
         R, L, ldeb = system
         rng = np.random.default_rng(13)
-        RE = jnp.asarray(np.stack([R, rng.uniform(0, L, R.shape)]),
-                         jnp.float32)
-        ldebs = jnp.asarray([ldeb, 0.7 * ldeb], jnp.float32)
-        FV = np.array(jax.vmap(
-            lambda r, ld: yukawa_forces_n3l_pallas(r, L, ld, tile=128,
-                                                   interpret=True))(
-            RE, ldebs))
-        for e in range(2):
-            F1 = np.array(yukawa_forces_n3l_pallas(
-                RE[e], L, float(ldebs[e]), tile=128, interpret=True))
-            np.testing.assert_allclose(FV[e], F1, rtol=1e-6, atol=1e-6)
+        RE = np.stack([R, rng.uniform(0, L, R.shape)])
+        ldebs = np.asarray([ldeb, 0.7 * ldeb])
+        FV = np.asarray(jax.vmap(lambda r, ld: yukawa_forces(r, L, ld))(
+            jnp.asarray(RE), jnp.asarray(ldebs)))
+        for j in range(2):
+            F_ref, _ = brute_force(RE[j], L, ldebs[j])
+            assert np.abs(FV[j] - F_ref).max() < 1e-10
+        F_other, _ = brute_force(RE[1], L, ldeb)
+        assert np.abs(FV[1] - F_other).max() > 1e-3
+
+    def test_best_forces_fn_traced_ldeb(self, system):
+        """The families' entry (best_forces_fn) accepts a traced ldeb."""
+        from mdqtplasmasims_tpu.ops.yukawa import best_forces_fn
+        R, L, ldeb = system
+        F = np.asarray(jax.jit(lambda ld: best_forces_fn(
+            R.shape[0], L, ld)(jnp.asarray(R))[0])(jnp.asarray(ldeb)))
+        F_ref, _ = brute_force(R, L, ldeb)
+        assert np.abs(F - F_ref).max() < 1e-10

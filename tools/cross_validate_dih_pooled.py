@@ -124,7 +124,7 @@ def main() -> int:
                 print(f"   fw job{j}: cached", flush=True)
                 continue
         cfg = CoolingConfig(n0=N0, tmax=TMAX, sample_freq=SAMPLE_FREQ,
-                            use_pallas=False, dtype="float64", job=j)
+                            dtype="float64", job=j)
         final, res = run(cfg)
         o = res["outs"]
         row = np.stack([np.asarray(o["t"], np.float64),

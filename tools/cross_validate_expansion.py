@@ -121,7 +121,7 @@ def main() -> int:
             print(f"   fw job{j}: stale cache (config changed), rerun",
                   flush=True)
         cfg = CoolingConfig(n0=N0, tmax=TMAX, sample_freq=SAMPLE_FREQ,
-                            frac_of_sig=FRAC, use_pallas=False,
+                            frac_of_sig=FRAC,
                             dtype="float64", job=j)
         final, res = run(cfg)
         o = res["outs"]

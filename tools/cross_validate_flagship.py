@@ -57,7 +57,7 @@ def main(ref_dir: str) -> int:
         sample_freq = int(round((ref[1, 0] - ref[0, 0]) / 0.002))
         tmax = float(round(ref[-1, 0] / 0.02) * 0.02)
         cfgs = [CoolingConfig(n0=n0, tmax=tmax, sample_freq=sample_freq,
-                              use_pallas=False, dtype="float64", job=j)
+                              dtype="float64", job=j)
                 for j in range(1, len(jobs) + 1)]
     else:
         ref = np.loadtxt(os.path.join(ref_dir, "energies.dat"))
@@ -65,7 +65,7 @@ def main(ref_dir: str) -> int:
             ref_dir, "statePopulationsVsVTime*.dat")))
         ref_spd = np.loadtxt(pf[-1])[:, 1:4].mean(0)
         cfgs = [CoolingConfig(n0=256, tmax=2.0, sample_freq=10,
-                              use_pallas=False, dtype="float64")]
+                              dtype="float64")]
 
     ek_list, ep_list, spd_list, nmin = [], [], [], len(ref)
     for cfg in cfgs:

@@ -84,7 +84,7 @@ def fw_job_stats(variant: str, job: int) -> dict:
     from mdqtplasmasims_tpu.experiments.frozen_tagging import (
         FrozenTagConfig, run)
     cfg = FrozenTagConfig(variant=variant, n0=N0, tstart=TSTART, tmax=TMAX,
-                          sample_freq=SAMPLE_FREQ, use_pallas=False,
+                          sample_freq=SAMPLE_FREQ,
                           dtype="float64", job=job)
     final, res = run(cfg)
     tag, outs = res["out_tag"], res["outs"]

@@ -75,7 +75,7 @@ def fw_config(base_dir: str, tmax: float):
                            tmax=tmax, timestep=0.002, sample_freq=40,
                            tpump_seconds=1e-7, detuning=-1.0, om=1.3,
                            density=2.0, ge=0.1, dtype="float64",
-                           use_pallas=False, save_directory=base_dir)
+                           save_directory=base_dir)
 
 
 def job_dir(base_dir: str) -> str:

@@ -37,7 +37,7 @@ def main(ref_job_dir: str) -> int:
 
     cfg = FrozenTagConfig(variant="422linear", n0=256, tstart=1.0, tmax=1.8,
                           tpump_seconds=5e-7, sample_freq=10,
-                          use_pallas=False, dtype="float64")
+                          dtype="float64")
     final, res = run(cfg)
     up = res["spin_up"]
     # the reference's earliest vel_distX file is its first post-tag

@@ -56,7 +56,7 @@ def main(ref_family_dir: str) -> int:
     for seed in range(1, len(refs) + 1):
         cfg = FrozenTagConfig(variant="408linear", n0=256, tstart=1.0,
                               tmax=1.8, sample_freq=10, job=seed,
-                              use_pallas=False, dtype="float64")
+                              dtype="float64")
         final, res = run(cfg)
         up = res["spin_up"]
         # the 408linear reference writes its taggedMoments row 0 AT the

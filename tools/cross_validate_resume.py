@@ -142,7 +142,7 @@ def direction_a(workdir: str) -> bool:
                                                               run, _save_dir)
     base = os.path.join(workdir, "dataA")
     cfg = CoolingConfig(n0=N0, tmax=TMAX1, sample_freq=SAMPLE_FREQ,
-                        use_pallas=False, dtype="float64",
+                        dtype="float64",
                         save_directory=base)
     run(cfg)
     job_dir = _save_dir(cfg)
@@ -190,7 +190,7 @@ def direction_b(workdir: str) -> bool:
     n_rows1 = e_ref.shape[0]
 
     cfg = CoolingConfig(n0=N0, tmax=TMAX2 - TMAX1, sample_freq=SAMPLE_FREQ,
-                        use_pallas=False, dtype="float64")
+                        dtype="float64")
     state = resume_state(job_dir, c0, cfg)
     n_ions = state.R.shape[0]
     print(f"  resumed N={n_ions} ions at t={float(state.t):.4f} "
@@ -228,7 +228,7 @@ def direction_c(workdir: str) -> bool:
                                                               run, _save_dir)
     base = os.path.join(workdir, "dataC")
     cfg = CoolingConfig(n0=N0, tmax=TMAX_OG1, sample_freq=SAMPLE_FREQ,
-                        use_pallas=False, dtype="float64",
+                        dtype="float64",
                         save_directory=base)
     run(cfg)
     job_dir = _save_dir(cfg)
@@ -273,7 +273,7 @@ def direction_d(workdir: str) -> bool:
     src_dir = job_dirs[0]
     base = os.path.join(workdir, "dataD_fw")
     cfg = CoolingConfig(n0=N0, tmax=TMAX_OG2, sample_freq=SAMPLE_FREQ,
-                        use_pallas=False, dtype="float64",
+                        dtype="float64",
                         save_directory=base)
     job_dir = _save_dir(cfg)
     os.makedirs(os.path.dirname(job_dir), exist_ok=True)
@@ -329,7 +329,7 @@ def direction_a_vaf(workdir: str) -> bool:
                                                               run, _save_dir)
     base = os.path.join(workdir, "dataAV")
     cfg = CoolingConfig(n0=N0, tmax=TMAX1, sample_freq=SAMPLE_FREQ,
-                        use_pallas=False, dtype="float64",
+                        dtype="float64",
                         vaf_intervals=(TSTART_V0,), save_directory=base)
     run(cfg)
     job_dir = _save_dir(cfg)
@@ -380,7 +380,7 @@ def direction_b_vaf(workdir: str) -> bool:
 
     base = os.path.join(workdir, "dataBV_fw")
     cfg = CoolingConfig(n0=N0, tmax=TMAX2, sample_freq=SAMPLE_FREQ,
-                        use_pallas=False, dtype="float64",
+                        dtype="float64",
                         vaf_intervals=(TSTART_V0,), save_directory=base)
     job_dir = _save_dir(cfg)
     os.makedirs(os.path.dirname(job_dir), exist_ok=True)

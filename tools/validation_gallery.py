@@ -89,7 +89,7 @@ def panel_dih(args, ax):
     fw = []
     for j in range(args.jobs):
         cfg = CoolingConfig(n0=600, tmax=6.0, sample_freq=20,
-                            use_pallas=False, dtype="float64",
+                            dtype="float64",
                             job=j + 1)
         _, res = run(cfg)
         o = res["outs"]
@@ -153,7 +153,7 @@ def panel_frozen(args, ax):
     for j in range(args.jobs):
         cfg = FrozenTagConfig(variant="422linear", n0=600, tstart=1.0,
                               tmax=2.0, sample_freq=10,
-                              use_pallas=False, dtype="float64",
+                              dtype="float64",
                               job=j + 1)
         _, res = run(cfg)
         # outs["moments"] is the post-tag tagged-moment time series;
